@@ -1,0 +1,7 @@
+"""``python -m neural_admixture_tpu_torch infer ...``"""
+import sys
+
+from .entry import main
+
+if __name__ == "__main__":
+    sys.exit(main())

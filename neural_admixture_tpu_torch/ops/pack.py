@@ -1,0 +1,44 @@
+"""Host-side views and checks of the 2-bit packed rows.
+
+Layout decision, for every kernel of the port: the kernels read the
+row-major (N, W) uint8 packed matrix as it is, each row in natural SNP
+order, as little-endian 32-bit words (16 SNPs each). The JAX package
+reorders SNPs into a "planar" order and the rows into a tile-major array
+(its ops/pack.py planar_perm, tiles_from_rows) so that Mosaic unpacks
+without lane shuffles and reads contiguous DMAs. On Hopper a packed row is
+already contiguous in device memory, so none of that is carried over: V, P
+and every other SNP-indexed array stay in natural order, and nothing needs
+undoing at a host boundary. Any reordering a kernel wants (for shared-memory
+banks, say) happens inside the kernel.
+"""
+import numpy as np
+
+
+def packed_view_u32(packed: np.ndarray) -> np.ndarray:
+    """(N, W) uint8 2-bit rows -> (N, W//4) little-endian uint32 words, the
+    words the kernels read (word w of a row holds SNPs 16w .. 16w+15, SNP
+    16w+b at bits 2b, 2b+1)."""
+    if packed.shape[-1] % 4:
+        raise ValueError(f"packed width {packed.shape[-1]} is not a multiple "
+                         "of 4 bytes")
+    return np.ascontiguousarray(packed).view("<u4")
+
+
+def packed_has_missing(packed: np.ndarray, block_bytes: int = 1 << 24
+                       ) -> bool:
+    """Does any 2-bit code equal 3 (missing)?
+
+    A byte holds a 0b11 pair iff ``b & (b >> 1) & 0b01010101`` is nonzero.
+    Blocked by bytes (whole rows, about ``block_bytes`` a block) with early
+    exit, so large matrices never make a full-size temporary: a block of a
+    fixed row count is a gigabyte at M = 1M. Column padding is packed as 0
+    and cannot alias 3. A False answer lets the kernels skip the
+    missing -> 0 select."""
+    b8 = np.ascontiguousarray(packed).view(np.uint8).reshape(
+        packed.shape[0], -1)
+    block_rows = max(1, block_bytes // max(1, b8.shape[1]))
+    for i in range(0, b8.shape[0], block_rows):
+        blk = b8[i:i + block_rows]
+        if np.any(blk & (blk >> 1) & 0x55):
+            return True
+    return False

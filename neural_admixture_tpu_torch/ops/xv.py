@@ -1,0 +1,108 @@
+"""xv: Xp = X @ V from 2-bit packed rows (kernel K2 of the port).
+
+The CUDA kernel is ``csrc/xv.cu`` (its source note says which TPU kernel it
+replaces, what bounds it on an H100, and how it is laid out). This module
+holds its wrapper :func:`xv` and its plain PyTorch version :func:`xv_plain`.
+
+A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel, or
+the wrapper raises. ``xv.launches`` counts the kernel launches.
+"""
+import ctypes
+
+import torch
+
+from .fused import unpack_dosage
+
+MAX_D = 32
+
+
+def xv_plain(packed: torch.Tensor, V: torch.Tensor,
+             chunk_snps: int = 65536) -> torch.Tensor:
+    """Plain version: unpack ``chunk_snps`` SNPs at a time (never the whole
+    (B, 4W) fp32 X) and accumulate ``x_chunk @ V_chunk``."""
+    B, W = packed.shape
+    out = torch.zeros(B, V.shape[1], dtype=torch.float32, device=V.device)
+    cw = max(1, chunk_snps // 4)
+    for w0 in range(0, W, cw):
+        x = unpack_dosage(packed[:, w0:w0 + cw])
+        out += x @ V[4 * w0:4 * w0 + x.shape[1]]
+    return out
+
+
+def _lib():
+    from .. import _build
+    lib = _build.load("xv")
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.na_xv.argtypes = [vp, vp, vp, vp, ll, ll, i, i, i, vp]
+    lib.na_xv.restype = i
+    lib.na_xv_rows_per_block.argtypes = [i]
+    lib.na_xv_rows_per_block.restype = i
+    lib.na_xv_chunks.argtypes = [ll]
+    lib.na_xv_chunks.restype = ll
+    return lib
+
+
+def _check(packed: torch.Tensor, V: torch.Tensor) -> None:
+    if packed.device != V.device:
+        raise ValueError(f"packed is on {packed.device} but V on {V.device}")
+    if packed.dtype != torch.uint8 or packed.dim() != 2:
+        raise ValueError(f"packed must be a 2-D uint8 tensor, got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
+    if V.dtype != torch.float32 or V.dim() != 2:
+        raise ValueError(f"V must be a 2-D float32 tensor, got {V.dtype} "
+                         f"{tuple(V.shape)}")
+    B, W = packed.shape
+    if V.shape[0] != 4 * W:
+        raise ValueError(f"V has {V.shape[0]} rows but packed rows hold "
+                         f"{4 * W} SNPs")
+    if not 1 <= V.shape[1] <= MAX_D:
+        raise ValueError(f"xv supports 1 <= D <= {MAX_D}, got D={V.shape[1]}")
+
+
+def xv(packed: torch.Tensor, V: torch.Tensor,
+       no_missing: bool = False) -> torch.Tensor:
+    """Xp (B, D) fp32 = X @ V, X the dosage/2 of ``packed`` (B, W) uint8
+    with code 3 -> 0, V (4W, D) fp32.
+
+    ``no_missing``: the caller has checked that no code is 3
+    (ops.pack.packed_has_missing); the kernel then skips the mask. The plain
+    version masks anyway (the result is the same)."""
+    _check(packed, V)
+    if packed.device.type == "cpu":
+        return xv_plain(packed, V)
+    if packed.device.type != "cuda":
+        raise ValueError(f"xv runs on CPU or CUDA tensors, not "
+                         f"{packed.device}")
+    B, W = packed.shape
+    D = V.shape[1]
+    if W % 4 or packed.data_ptr() % 4:
+        raise ValueError(f"the xv kernel reads 32-bit words: packed width "
+                         f"{W} must be a multiple of 4 and rows 4-byte "
+                         "aligned")
+    if not (packed.is_contiguous() and V.is_contiguous()):
+        raise ValueError("xv needs contiguous packed and V")
+    out = torch.empty(B, D, dtype=torch.float32, device=V.device)
+    if B == 0 or W == 0:
+        return out.zero_()
+    lib = _lib()
+    dev = torch.cuda.get_device_properties(packed.device)
+    row_groups = -(-B // lib.na_xv_rows_per_block(D))
+    # ~4 blocks per SM in all, but no split without a chunk of its own.
+    n_split = max(1, min(lib.na_xv_chunks(W),
+                         -(-4 * dev.multi_processor_count // row_groups),
+                         65535))
+    partial = torch.empty(n_split, B, D, dtype=torch.float32,
+                          device=V.device)
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.na_xv(packed.data_ptr(), V.data_ptr(), partial.data_ptr(),
+                        out.data_ptr(), B, W, D, n_split, int(no_missing),
+                        stream)
+    if err != 0:
+        raise RuntimeError(f"xv kernel launch failed: CUDA error {err} "
+                           f"(B={B}, W={W}, D={D}, n_split={n_split})")
+    xv.launches += 1
+    return out
+
+
+xv.launches = 0
