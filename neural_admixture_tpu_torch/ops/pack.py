@@ -1,4 +1,4 @@
-"""Host-side views and checks of the 2-bit packed rows.
+"""Views, checks and decodes of the 2-bit packed rows.
 
 Layout decision, for every kernel of the port: the kernels read the
 row-major (N, W) uint8 packed matrix as it is, each row in natural SNP
@@ -12,6 +12,15 @@ undoing at a host boundary. Any reordering a kernel wants (for shared-memory
 banks, say) happens inside the kernel.
 """
 import numpy as np
+import torch
+
+
+def unpack_genotypes(packed: torch.Tensor) -> torch.Tensor:
+    """(..., W) uint8 -> (..., 4W) uint8 raw codes in {0, 1, 2, 3}, the
+    input of the RSVD and the PCA projection (missing stays 3)."""
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=packed.device)
+    g = (packed.unsqueeze(-1) >> shifts) & 3
+    return g.reshape(*packed.shape[:-1], packed.shape[-1] * 4)
 
 
 def packed_view_u32(packed: np.ndarray) -> np.ndarray:

@@ -1,0 +1,79 @@
+"""Randomized SVD of the packed genotype matrix.
+
+The JAX package's ops/rsvd.py ``rsvd``, with the same algorithm and numbers:
+a Gaussian test matrix from ``np.random.default_rng(seed)`` (drawn exactly as
+there), k' = max(k + oversampling, 20), 2 power iterations with QR
+re-orthonormalisation, the dense SVD of B = Q^T A and the deterministic
+sign flip. The raw genotype codes are the input, missing (3) included, as
+in the reference.
+
+The big products A @ Omega and Q^T @ A are ``torch.matmul`` on the device
+over unpacked row blocks of about ``block_bytes`` of fp32 each (blocked by
+bytes, not rows: 4096 rows at M = 1M would be a 16 GB block); the (N, k')
+QR and the (k', M) SVD run on the host in NumPy, as in the JAX package.
+Results do not depend on the block size except for fp32 summation order.
+"""
+import numpy as np
+import torch
+
+from .pack import unpack_genotypes
+
+
+def svd_flip(V: np.ndarray, U: np.ndarray) -> np.ndarray:
+    """Sign-normalise the rows of Vt by the dominant entries of U's
+    columns (the reference's convention)."""
+    U = np.asarray(U)
+    V = np.asarray(V)
+    idx = np.argmax(np.abs(U), axis=0)
+    signs = np.sign(U[idx, np.arange(U.shape[1])])
+    return V * signs[:, None]
+
+
+def block_rows_for(m_pad: int, block_bytes: int) -> int:
+    """Rows of an unpacked fp32 (rows, m_pad) block of ~``block_bytes``."""
+    return max(1, block_bytes // max(1, 4 * m_pad))
+
+
+def _genotype_block(packed: torch.Tensor, i: int, rows: int) -> torch.Tensor:
+    return unpack_genotypes(packed[i:i + rows]).to(torch.float32)
+
+
+def rsvd(packed: torch.Tensor, N: int, M: int, k: int = 8, seed: int = 42,
+         oversampling: int = 10, power_iterations: int = 2,
+         block_bytes: int = 1 << 30) -> np.ndarray:
+    """Randomized SVD of the packed genotypes. Returns Vt_k (k, M) float32.
+
+    ``packed``: (N, W) uint8 tensor, on the device that runs the products
+    (padding columns are genotype 0 and add nothing)."""
+    dev = packed.device
+    W = packed.shape[1]
+    m_pad = 4 * W
+    rows = block_rows_for(m_pad, block_bytes)
+    k_prime = max(k + oversampling, 20)
+    rng = np.random.default_rng(seed)
+    Omega = np.zeros((m_pad, k_prime), np.float32)
+    Omega[:M] = rng.standard_normal(size=(M, k_prime), dtype=np.float32)
+
+    def A_omega(Om: np.ndarray) -> np.ndarray:
+        Om_d = torch.from_numpy(np.ascontiguousarray(Om)).to(dev)
+        Y = torch.empty(N, Om.shape[1], dtype=torch.float32, device=dev)
+        for i in range(0, N, rows):
+            Y[i:i + rows] = _genotype_block(packed, i, rows) @ Om_d
+        return Y.cpu().numpy()
+
+    def Qt_A(Q: np.ndarray) -> np.ndarray:
+        Qt = torch.from_numpy(np.ascontiguousarray(Q.T)).to(dev)
+        B = torch.zeros(Q.shape[1], m_pad, dtype=torch.float32, device=dev)
+        for i in range(0, N, rows):
+            B += Qt[:, i:i + rows] @ _genotype_block(packed, i, rows)
+        return B.cpu().numpy()
+
+    Y = A_omega(Omega)
+    for _ in range(power_iterations):
+        Q_y, _ = np.linalg.qr(Y, mode="reduced")
+        Y = A_omega(Qt_A(Q_y).T)
+    Q, _ = np.linalg.qr(Y, mode="reduced")
+    B = Qt_A(Q)
+    Ut, _St, Vt = np.linalg.svd(B[:, :M], full_matrices=False)
+    Vt = svd_flip(Vt, Ut)
+    return Vt[:k, :].astype(np.float32)
