@@ -31,7 +31,13 @@
 //     one dXp load feeds S genotypes;
 //   * the missing -> 0 mask costs 5 integer ops per 16-SNP word (compiled
 //     out when the host proved there is no code 3: NO_MISSING); the next
-//     row's word is prefetched while a row computes.
+//     row's word is prefetched while a row computes;
+//   * K7, the indexed form (the JAX package's ops/fused_step.py:560-595):
+//     with blk_idx, batch row r reads resident row blk_idx[r / blk] * blk +
+//     r % blk in place. The indexed instances (INDEXED) stage the packed
+//     row of each batch row in shared memory beside its dXp (batch_row,
+//     unpack.cuh); the gathered ones keep plain strides. The same
+//     arithmetic in the same order, so the two agree bit for bit.
 //
 // Offsets are 64-bit: B*W and m_pad*D pass 2^31 at biobank sizes.
 
@@ -45,22 +51,25 @@ namespace {
 constexpr int kThreads = 256;
 
 // Per DT (D rounded up to 4, 8, 16 or 32): SNPs a thread owns (its sums
-// are S * DT = 64 registers) and the dXp rows staged per pass.
+// are S * DT = 64 registers) and the dXp rows staged per pass (INDEXED:
+// with their packed rows, 4 bytes each).
 template <int DT>
 struct Geom {
   static constexpr int S = 64 / DT;
   static constexpr int kRows = 8192 / DT;
 };
 
-template <int DT, bool NO_MISSING>
+template <int DT, bool NO_MISSING, bool INDEXED>
 __global__ void __launch_bounds__(kThreads, 2)
 dv_kernel(const uint32_t* __restrict__ packed, const float* __restrict__ dXp,
+          const int32_t* __restrict__ blk_idx, int blk,
           float* __restrict__ dV, int64_t B, int64_t W4, int D) {
   constexpr int S = Geom<DT>::S;
   constexpr int kRows = Geom<DT>::kRows;
   constexpr int Q = DT / 4;
-  extern __shared__ float4 sx4[];  // [kRows][Q] float4
+  extern __shared__ float4 sx4[];  // [kRows][Q] float4, then [kRows] int32
   float* sx = reinterpret_cast<float*>(sx4);
+  int* srow = reinterpret_cast<int*>(sx + kRows * DT);
 
   const int64_t m_pad = W4 * 16;
   const int64_t s0 = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * S;
@@ -81,14 +90,20 @@ dv_kernel(const uint32_t* __restrict__ packed, const float* __restrict__ dXp,
       const int b = i / DT, d = i % DT;
       sx[i] = d < D ? dXp[(r0 + b) * D + d] : 0.f;
     }
+    if (INDEXED)
+      for (int b = threadIdx.x; b < rows; b += kThreads)
+        srow[b] = (int)batch_row(blk_idx, blk, r0 + b);
     __syncthreads();
 
-    const uint32_t* rows_p = packed + r0 * W4 + w;
-    uint32_t u_next = ok ? __ldg(rows_p) : 0u;
+    // This thread's word of batch row b (of this pass).
+    const uint32_t* rows_p = INDEXED ? packed + w : packed + r0 * W4 + w;
+    auto word = [&](int b) {
+      return rows_p + (INDEXED ? (int64_t)srow[b] : (int64_t)b) * W4;
+    };
+    uint32_t u_next = ok ? __ldg(word(0)) : 0u;
     for (int b = 0; b < rows; ++b) {
       uint32_t u = u_next;
-      u_next = (ok && b + 1 < rows) ? __ldg(rows_p + (int64_t)(b + 1) * W4)
-                                    : 0u;
+      u_next = (ok && b + 1 < rows) ? __ldg(word(b + 1)) : 0u;
       if (!NO_MISSING) u = unpack_word(u);
       u >>= shift;
       float4 v[Q];
@@ -120,50 +135,64 @@ dv_kernel(const uint32_t* __restrict__ packed, const float* __restrict__ dXp,
   }
 }
 
-template <int DT, bool NO_MISSING>
-cudaError_t launch(const uint32_t* packed, const float* dXp, float* dV,
-                   int64_t B, int64_t W4, int D, cudaStream_t stream) {
-  const size_t smem = (size_t)Geom<DT>::kRows * DT * sizeof(float);
+template <int DT, bool NO_MISSING, bool INDEXED>
+cudaError_t launch(const uint32_t* packed, const float* dXp,
+                   const int32_t* blk_idx, int blk, float* dV, int64_t B,
+                   int64_t W4, int D, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)Geom<DT>::kRows * (DT + (INDEXED ? 1 : 0)) * sizeof(float);
+  auto kernel = dv_kernel<DT, NO_MISSING, INDEXED>;
   cudaError_t err = cudaFuncSetAttribute(
-      dv_kernel<DT, NO_MISSING>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int64_t snps_per_block = (int64_t)kThreads * Geom<DT>::S;
   const int64_t blocks = (W4 * 16 + snps_per_block - 1) / snps_per_block;
-  dv_kernel<DT, NO_MISSING><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      packed, dXp, dV, B, W4, D);
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      packed, dXp, blk_idx, blk, dV, B, W4, D);
   return cudaGetLastError();
 }
 
 template <int DT>
-cudaError_t dispatch(const uint32_t* packed, const float* dXp, float* dV,
-                     int64_t B, int64_t W4, int D, int no_missing,
-                     cudaStream_t s) {
-  return no_missing ? launch<DT, true>(packed, dXp, dV, B, W4, D, s)
-                    : launch<DT, false>(packed, dXp, dV, B, W4, D, s);
+cudaError_t dispatch(const uint32_t* packed, const float* dXp,
+                     const int32_t* blk_idx, int blk, float* dV, int64_t B,
+                     int64_t W4, int D, int no_missing, cudaStream_t s) {
+#define NA_DV_LAUNCH(N, I) \
+  launch<DT, N, I>(packed, dXp, blk_idx, blk, dV, B, W4, D, s)
+  switch ((no_missing ? 2 : 0) | (blk_idx != nullptr ? 1 : 0)) {
+    case 0: return NA_DV_LAUNCH(false, false);
+    case 1: return NA_DV_LAUNCH(false, true);
+    case 2: return NA_DV_LAUNCH(true, false);
+    default: return NA_DV_LAUNCH(true, true);
+  }
+#undef NA_DV_LAUNCH
 }
 
 }  // namespace
 
 extern "C" {
 
-// packed: (B, W) uint8, W % 4 == 0, 4-byte aligned; dXp: (B, D) fp32;
-// dV: (4W, D) fp32, every element written. Returns the cudaError_t of the
-// launch (0 = cudaSuccess). 1 <= D <= 32, B >= 1.
+// packed: (rows, W) uint8, W % 4 == 0, 4-byte aligned: the batch itself
+// (blk_idx null, rows = B) or the resident rows that the (B / blk,) int32
+// blk_idx indexes (K7); dXp: (B, D) fp32; dV: (4W, D) fp32, every element
+// written. Returns the cudaError_t of the launch (0 = cudaSuccess).
+// 1 <= D <= 32, B >= 1.
 int na_dv(const void* packed, const void* dXp, void* dV, long long B,
-          long long W, int D, int no_missing, void* stream) {
+          long long W, int D, int no_missing, const void* blk_idx, int blk,
+          void* stream) {
   const uint32_t* p = static_cast<const uint32_t*>(packed);
   const float* x = static_cast<const float*>(dXp);
+  const int32_t* bi = static_cast<const int32_t*>(blk_idx);
   float* out = static_cast<float*>(dV);
   const int64_t W4 = W / 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1) return (int)cudaErrorInvalidValue;
-  if (D >= 1 && D <= 4) return dispatch<4>(p, x, out, B, W4, D, no_missing, s);
-  if (D >= 1 && D <= 8) return dispatch<8>(p, x, out, B, W4, D, no_missing, s);
-  if (D >= 1 && D <= 16)
-    return dispatch<16>(p, x, out, B, W4, D, no_missing, s);
-  if (D >= 1 && D <= 32)
-    return dispatch<32>(p, x, out, B, W4, D, no_missing, s);
+  if (B < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  if (bi != nullptr && (blk < 1 || B % blk)) return (int)cudaErrorInvalidValue;
+  if (D <= 4) return dispatch<4>(p, x, bi, blk, out, B, W4, D, no_missing, s);
+  if (D <= 8) return dispatch<8>(p, x, bi, blk, out, B, W4, D, no_missing, s);
+  if (D <= 16)
+    return dispatch<16>(p, x, bi, blk, out, B, W4, D, no_missing, s);
+  if (D <= 32)
+    return dispatch<32>(p, x, bi, blk, out, B, W4, D, no_missing, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -34,7 +34,14 @@
 //     reorder is internal; V stays in natural SNP order in device memory;
 //   * the grid splits M across blockIdx.y so that B/rows x n_split blocks
 //     fill the 132 SMs; a second tiny kernel sums the (n_split, B, D)
-//     partials in a fixed order. Results are deterministic, with no atomics.
+//     partials in a fixed order. Results are deterministic, with no atomics;
+//   * K7, the indexed form (the JAX package's ops/fused_step.py:560-595):
+//     with blk_idx, batch row r is resident row blk_idx[r / blk] * blk +
+//     r % blk, read in place instead of from a gathered copy. The indexed
+//     instances (INDEXED) stage the word offsets of a block's 64 rows in
+//     shared memory once (batch_row, unpack.cuh); the gathered ones keep
+//     plain strides, which the table would slow by ~5%. Both run the same
+//     arithmetic on the same rows, so they agree bit for bit.
 // Reaching the memory bound needs the tensor cores (g is exact in bf16, V
 // split into bf16 hi + lo parts, wgmma on the decoded tile); that is later
 // work.
@@ -59,23 +66,37 @@ struct RowsPerThread {
   static constexpr int value = DT <= 8 ? 8 : (DT == 16 ? 4 : 2);
 };
 
-template <int DT, bool NO_MISSING>
+template <int DT, bool NO_MISSING, bool INDEXED>
 __global__ void __launch_bounds__(kThreads, 2)
 xv_partial_kernel(const uint32_t* __restrict__ packed,
                   const float* __restrict__ V, float* __restrict__ partial,
+                  const int32_t* __restrict__ blk_idx, int blk,
                   int64_t B, int64_t W4, int D, int64_t n_chunks,
                   int n_split) {
   constexpr int R = RowsPerThread<DT>::value;
   constexpr int Q = DT / 4;
   extern __shared__ float4 vs[];  // [16][Q][32] float4 = kChunkSnps*DT floats
+  __shared__ int64_t row_off[kWarps * R];  // INDEXED: each row's offset
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int split = blockIdx.y;
-  const int64_t row0 = (int64_t)blockIdx.x * (kWarps * R) + warp * R;
+  const int64_t block_row0 = (int64_t)blockIdx.x * (kWarps * R);
+  const int64_t row0 = block_row0 + warp * R;
   const int64_t left = B - row0;
   const int n_rows = left < 0 ? 0 : (left < R ? (int)left : R);
+  if constexpr (INDEXED) {
+    for (int i = threadIdx.x; i < kWarps * R; i += kThreads)
+      row_off[i] = block_row0 + i < B
+                       ? batch_row(blk_idx, blk, block_row0 + i) * W4 : 0;
+    __syncthreads();
+  }
   const uint32_t* rows = packed + row0 * W4;
+  const int64_t* offs = row_off + warp * R;
+  // Word w of this warp's row r.
+  auto word = [&](int r, int64_t w) {
+    return INDEXED ? packed + offs[r] + w : rows + r * W4 + w;
+  };
   const int64_t c0 = n_chunks * split / n_split;
   const int64_t c1 = n_chunks * (split + 1) / n_split;
   const int64_t m_pad = W4 * 16;
@@ -90,8 +111,7 @@ xv_partial_kernel(const uint32_t* __restrict__ packed,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int64_t w = c0 * kChunkWords + lane;
-    u_next[r] = (r < n_rows && c0 < c1 && w < W4) ? __ldg(rows + r * W4 + w)
-                                                  : 0u;
+    u_next[r] = (r < n_rows && c0 < c1 && w < W4) ? __ldg(word(r, w)) : 0u;
   }
 
   for (int64_t c = c0; c < c1; ++c) {
@@ -121,8 +141,8 @@ xv_partial_kernel(const uint32_t* __restrict__ packed,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int64_t w = (c + 1) * kChunkWords + lane;
-      u_next[r] = (r < n_rows && c + 1 < c1 && w < W4)
-                      ? __ldg(rows + r * W4 + w) : 0u;
+      u_next[r] = (r < n_rows && c + 1 < c1 && w < W4) ? __ldg(word(r, w))
+                                                        : 0u;
     }
     if (!NO_MISSING) {
 #pragma unroll
@@ -182,21 +202,21 @@ __global__ void xv_reduce_kernel(const float* __restrict__ partial,
   out[i] = s;
 }
 
-template <int DT, bool NO_MISSING>
+template <int DT, bool NO_MISSING, bool INDEXED>
 cudaError_t launch(const uint32_t* packed, const float* V, float* partial,
-                   float* out, int64_t B, int64_t W4, int D, int n_split,
-                   cudaStream_t stream) {
+                   float* out, const int32_t* blk_idx, int blk, int64_t B,
+                   int64_t W4, int D, int n_split, cudaStream_t stream) {
   const size_t smem = (size_t)kChunkSnps * DT * sizeof(float);
+  auto kernel = xv_partial_kernel<DT, NO_MISSING, INDEXED>;
   cudaError_t err = cudaFuncSetAttribute(
-      xv_partial_kernel<DT, NO_MISSING>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows_per_block = kWarps * RowsPerThread<DT>::value;
   const int64_t n_chunks = (W4 + kChunkWords - 1) / kChunkWords;
   dim3 grid((unsigned)((B + rows_per_block - 1) / rows_per_block),
             (unsigned)n_split);
-  xv_partial_kernel<DT, NO_MISSING><<<grid, kThreads, smem, stream>>>(
-      packed, V, partial, B, W4, D, n_chunks, n_split);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      packed, V, partial, blk_idx, blk, B, W4, D, n_chunks, n_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t n = B * D;
@@ -207,12 +227,20 @@ cudaError_t launch(const uint32_t* packed, const float* V, float* partial,
 
 template <int DT>
 cudaError_t dispatch_missing(const uint32_t* packed, const float* V,
-                             float* partial, float* out, int64_t B,
+                             float* partial, float* out,
+                             const int32_t* blk_idx, int blk, int64_t B,
                              int64_t W4, int D, int n_split, int no_missing,
                              cudaStream_t stream) {
-  return no_missing
-      ? launch<DT, true>(packed, V, partial, out, B, W4, D, n_split, stream)
-      : launch<DT, false>(packed, V, partial, out, B, W4, D, n_split, stream);
+#define NA_XV_LAUNCH(N, I) \
+  launch<DT, N, I>(packed, V, partial, out, blk_idx, blk, B, W4, D, n_split, \
+                   stream)
+  switch ((no_missing ? 2 : 0) | (blk_idx != nullptr ? 1 : 0)) {
+    case 0: return NA_XV_LAUNCH(false, false);
+    case 1: return NA_XV_LAUNCH(false, true);
+    case 2: return NA_XV_LAUNCH(true, false);
+    default: return NA_XV_LAUNCH(true, true);
+  }
+#undef NA_XV_LAUNCH
 }
 
 }  // namespace
@@ -233,28 +261,35 @@ long long na_xv_chunks(long long W) {
   return (W4 + kChunkWords - 1) / kChunkWords;
 }
 
-// packed: (B, W) uint8, W % 4 == 0, 4-byte aligned; V: (4W, D) fp32;
-// partial: (n_split, B, D) fp32 scratch; out: (B, D) fp32. Returns the
-// cudaError_t of the launches (0 = cudaSuccess). 1 <= D <= 32.
+// packed: (rows, W) uint8, W % 4 == 0, 4-byte aligned: the batch itself
+// (blk_idx null, rows = B) or the resident rows that the (B / blk,) int32
+// blk_idx indexes (K7); V: (4W, D) fp32; partial: (n_split, B, D) fp32
+// scratch; out: (B, D) fp32. Returns the cudaError_t of the launches
+// (0 = cudaSuccess). 1 <= D <= 32.
 int na_xv(const void* packed, const void* V, void* partial, void* out,
           long long B, long long W, int D, int n_split, int no_missing,
-          void* stream) {
+          const void* blk_idx, int blk, void* stream) {
   const uint32_t* p = static_cast<const uint32_t*>(packed);
   const float* v = static_cast<const float*>(V);
   float* part = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
+  const int32_t* bi = static_cast<const int32_t*>(blk_idx);
   const int64_t W4 = W / 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bi != nullptr && (blk < 1 || B % blk)) return (int)cudaErrorInvalidValue;
+  if (D < 1) return (int)cudaErrorInvalidValue;
   if (D <= 4)
-    return dispatch_missing<4>(p, v, part, o, B, W4, D, n_split, no_missing, s);
+    return dispatch_missing<4>(p, v, part, o, bi, blk, B, W4, D, n_split,
+                               no_missing, s);
   if (D <= 8)
-    return dispatch_missing<8>(p, v, part, o, B, W4, D, n_split, no_missing, s);
+    return dispatch_missing<8>(p, v, part, o, bi, blk, B, W4, D, n_split,
+                               no_missing, s);
   if (D <= 16)
-    return dispatch_missing<16>(p, v, part, o, B, W4, D, n_split, no_missing,
-                                s);
+    return dispatch_missing<16>(p, v, part, o, bi, blk, B, W4, D, n_split,
+                                no_missing, s);
   if (D <= 32)
-    return dispatch_missing<32>(p, v, part, o, B, W4, D, n_split, no_missing,
-                                s);
+    return dispatch_missing<32>(p, v, part, o, bi, blk, B, W4, D, n_split,
+                                no_missing, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,13 +1,17 @@
 """CLI entry point: ``neural-admixture-tpu-torch {train,infer} ...``.
 
 The flag surface of the JAX package's CLI, with YAML config-file support
-(``--config file.yaml``). Ported so far: ``train`` (unsupervised, one K, a
-PLINK BED) and ``infer``, on one device. Both run on the card by default
-(``--num_gpus 1``); ``--num_gpus 0`` asks for the CPU. Every flag of the JAX
-package parses; those outside the ported slice (``--num_gpus > 1``,
-``--mesh``, ``--min_k/--max_k``, ``--pops_path``, ``--cv``,
+(``--config file.yaml``). Ported so far, on a PLINK BED and one device:
+``train`` with one K (``--k``) or a K range (``--min_k``/``--max_k``, one
+head per K), unsupervised or supervised (``--pops_path``, one K), and
+``infer``. Both run on the card by default (``--num_gpus 1``);
+``--num_gpus 0`` asks for the CPU. Every flag of the JAX package parses;
+those outside the ported slice (``--num_gpus > 1``, ``--mesh``, ``--cv``,
 ``--init_restarts > 1``, checkpoints, ``--stream 1``, ``--profile_dir``)
-raise "not ported yet" with the ROADMAP.md item that ports them.
+raise "not ported yet" with the ROADMAP.md item that ports them. The JAX
+package's environment variables ``NA_TPU_INDEXED``, ``NA_TPU_SPLIT_LOSS``
+and ``NA_TPU_FORCE_MASKED`` choose the training program
+(train/engine.py).
 """
 import argparse
 import logging
@@ -130,10 +134,10 @@ def parse_train_args(argv: List[str]) -> argparse.Namespace:
                         help="Number of populations/clusters.")
     parser.add_argument("--min_k", required=False, type=int,
                         help="Minimum number of populations/clusters "
-                        "(multi-head); not ported yet.")
+                        "(multi-head).")
     parser.add_argument("--max_k", required=False, type=int,
                         help="Maximum number of populations/clusters "
-                        "(multi-head); not ported yet.")
+                        "(multi-head).")
     parser.add_argument("--hidden_size", required=False, default=1024,
                         type=int, help="Dimension of first projection in "
                         "encoder.")
@@ -148,7 +152,7 @@ def parse_train_args(argv: List[str]) -> argparse.Namespace:
                         help="Weight given to the supervised loss.")
     parser.add_argument("--pops_path", required=False, default="", type=str,
                         help="Path containing the main data populations "
-                        "(supervised mode); not ported yet.")
+                        "(supervised mode).")
     parser.add_argument("--n_components", required=False, type=int,
                         default=8, help="Number of components to use for "
                         "the SVD initialization.")
@@ -250,7 +254,13 @@ def _validate(mode: str, args: argparse.Namespace) -> None:
         if args.k <= 1:
             raise ValueError("Please select K > 1.")
         log.info(f"    Running on K = {args.k}.")
-    elif args.min_k is None or args.max_k is None:
+    elif args.min_k is not None and args.max_k is not None:
+        if args.min_k <= 1:
+            raise ValueError("min_k must be greater than 1.")
+        if args.max_k <= args.min_k:
+            raise ValueError("max_k must be greater than min_k.")
+        log.info(f"    Running from K={args.min_k} to K={args.max_k}.")
+    else:
         raise ValueError("Please provide either --k or both --min_k and "
                          "--max_k.")
 

@@ -5,21 +5,28 @@ replaces, what bounds it on an H100, and how it is laid out). This module
 holds its wrapper :func:`dv` and its plain PyTorch version :func:`dv_plain`.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel, or
-the wrapper raises. ``dv.launches`` counts the kernel launches.
+the wrapper raises. A batch is gathered (its own rows) or indexed (K7: the
+resident rows and a block index, ops/pack.py). ``dv.launches`` counts the
+launches on gathered batches, ``dv.indexed_launches`` those on indexed ones.
 """
 import ctypes
+from typing import Optional
 
 import torch
 
 from .fused import unpack_dosage
+from .pack import batch_size, gather_batch
 
 MAX_D = 32
 
 
 def dv_plain(packed: torch.Tensor, dXp: torch.Tensor,
-             chunk_snps: int = 65536) -> torch.Tensor:
-    """Plain version: unpack ``chunk_snps`` SNPs at a time (never the whole
-    (B, 4W) fp32 X) and write ``x_chunk.T @ dXp`` into dV (4W, D)."""
+             chunk_snps: int = 65536, blk_idx: Optional[torch.Tensor] = None,
+             blk: int = 1) -> torch.Tensor:
+    """Plain version: gather an indexed batch, then unpack ``chunk_snps``
+    SNPs at a time (never the whole (B, 4W) fp32 X) and write
+    ``x_chunk.T @ dXp`` into dV (4W, D)."""
+    packed = gather_batch(packed, blk_idx, blk)
     B, W = packed.shape
     out = torch.empty(4 * W, dXp.shape[1], dtype=torch.float32,
                       device=dXp.device)
@@ -34,12 +41,12 @@ def _lib():
     from .. import _build
     lib = _build.load("dv")
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.na_dv.argtypes = [vp, vp, vp, ll, ll, i, i, vp]
+    lib.na_dv.argtypes = [vp, vp, vp, ll, ll, i, i, vp, i, vp]
     lib.na_dv.restype = i
     return lib
 
 
-def _check(packed: torch.Tensor, dXp: torch.Tensor) -> None:
+def _check(packed: torch.Tensor, dXp: torch.Tensor, B: int) -> None:
     if packed.device != dXp.device:
         raise ValueError(f"packed is on {packed.device} but dXp on "
                          f"{dXp.device}")
@@ -49,29 +56,31 @@ def _check(packed: torch.Tensor, dXp: torch.Tensor) -> None:
     if dXp.dtype != torch.float32 or dXp.dim() != 2:
         raise ValueError(f"dXp must be a 2-D float32 tensor, got "
                          f"{dXp.dtype} {tuple(dXp.shape)}")
-    if dXp.shape[0] != packed.shape[0]:
-        raise ValueError(f"dXp has {dXp.shape[0]} rows but packed "
-                         f"{packed.shape[0]}")
+    if dXp.shape[0] != B:
+        raise ValueError(f"dXp has {dXp.shape[0]} rows but the batch {B}")
     if not 1 <= dXp.shape[1] <= MAX_D:
         raise ValueError(f"dv supports 1 <= D <= {MAX_D}, got "
                          f"D={dXp.shape[1]}")
 
 
-def dv(packed: torch.Tensor, dXp: torch.Tensor,
-       no_missing: bool = False) -> torch.Tensor:
-    """dV (4W, D) fp32 = X^T @ dXp, X the dosage/2 of ``packed`` (B, W)
-    uint8 with code 3 -> 0, dXp (B, D) fp32.
+def dv(packed: torch.Tensor, dXp: torch.Tensor, no_missing: bool = False,
+       blk_idx: Optional[torch.Tensor] = None, blk: int = 1) -> torch.Tensor:
+    """dV (4W, D) fp32 = X^T @ dXp, X the dosage/2 of the batch's packed
+    rows with code 3 -> 0, dXp (B, D) fp32. The batch is ``packed`` (B, W)
+    uint8, or with ``blk_idx`` (int32, B / blk blocks) the rows of the
+    resident ``packed`` that it indexes, read in place on the card.
 
     ``no_missing``: the caller has checked that no code is 3
     (ops.pack.packed_has_missing); the kernel then skips the mask. The plain
     version masks anyway (the result is the same)."""
-    _check(packed, dXp)
+    B = batch_size(packed, blk_idx, blk)
+    _check(packed, dXp, B)
     if packed.device.type == "cpu":
-        return dv_plain(packed, dXp)
+        return dv_plain(packed, dXp, blk_idx=blk_idx, blk=blk)
     if packed.device.type != "cuda":
         raise ValueError(f"dv runs on CPU or CUDA tensors, not "
                          f"{packed.device}")
-    B, W = packed.shape
+    W = packed.shape[1]
     D = dXp.shape[1]
     if W % 4 or packed.data_ptr() % 4:
         raise ValueError(f"the dv kernel reads 32-bit words: packed width {W} "
@@ -85,12 +94,18 @@ def dv(packed: torch.Tensor, dXp: torch.Tensor,
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.na_dv(packed.data_ptr(), dXp.data_ptr(), out.data_ptr(), B,
-                        W, D, int(no_missing), stream)
+                        W, D, int(no_missing),
+                        None if blk_idx is None else blk_idx.data_ptr(),
+                        int(blk), stream)
     if err != 0:
         raise RuntimeError(f"dv kernel launch failed: CUDA error {err} "
                            f"(B={B}, W={W}, D={D})")
-    dv.launches += 1
+    if blk_idx is None:
+        dv.launches += 1
+    else:
+        dv.indexed_launches += 1
     return out
 
 
 dv.launches = 0
+dv.indexed_launches = 0

@@ -1,24 +1,35 @@
 """The per-batch work on packed rows: the inference forward and the
 training op, counterparts of the JAX package's ops/fused_step.py
-``fused_infer_q`` and ``make_fused_training_loss``.
+``fused_infer_q``, ``make_fused_training_loss`` and
+``make_indexed_training_loss``.
 
 The (B, M) fp32 X never exists. A training step touches the packed batch in
-three passes, as the JAX op does:
+three passes, as the JAX op does (per head for the decoder plane):
 
   forward:   xv (K2)           Xp = X @ V
              encoder           qs = softmax(heads(relu(common(rmsnorm(Xp)))))
-             loss_dq_dp (K4)   logged epochs only: the BCE sum, with dq and
-                               dP (unscaled) kept for the backward
-  backward:  dq_dp (K3)        unlogged epochs: dq and dP from the loss
+             loss_dq_dp (K4)   logged epochs, merged program: the BCE sum,
+                               with dq and dP (unscaled) kept for the
+                               backward
+             bce_sum (K6)      logged epochs, split program: the BCE sum
+  backward:  dq_dp (K3)        unlogged epochs, and logged ones under the
+                               split program: dq and dP from the loss
                                cotangent g
              encoder backward  ordinary autograd (the JAX op's jax.vjp)
              dv (K5)           dV = X^T dXp
 
 as two ``torch.autograd.Function``s: :class:`XV` (forward K2, backward K5)
-and :class:`PlaneBCE` (the decoder plane's BCE: K4 forward on logged
-epochs; on unlogged epochs a zero loss that still carries the graph, and
-K3 in the backward). Each kernel wrapper takes its plain PyTorch version on
-CPU tensors.
+and :class:`PlaneBCE` (the decoder plane's BCE of one head: K4 forward on
+logged epochs, or K6 forward and K3 backward under the split program; on
+unlogged epochs a zero loss that still carries the graph, and K3 in the
+backward). Each kernel wrapper takes its plain PyTorch version on CPU
+tensors.
+
+The batch is gathered (its own (B, W) rows) or, with ``blk_idx``, indexed
+(K7): the resident rows and the int32 ids of its ``blk``-row blocks, which
+every kernel reads in place. That is one op with an optional block index,
+as on the card it is one argument of the same kernels; the backward keeps
+the resident tensor by reference, never a copy.
 
 Gradient semantics are the JAX package's ops/loss.py (torch BCE backward,
 boundary-inclusive clamp gradient). ``masked=False`` is for batches of
@@ -27,10 +38,11 @@ exactly 0 from init on (models/qp.py init_params), so every padded-column
 term is exactly 0 without the mask (the JAX package's
 ops/fused_step.py:788-798).
 """
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from .bce_sum import bce_sum
 from .dq_dp import dq_dp
 from .dv import dv
 from .xv import xv
@@ -47,64 +59,76 @@ class XV(torch.autograd.Function):
     """Xp = X @ V (K2); the backward is dV = X^T dXp (K5)."""
 
     @staticmethod
-    def forward(ctx, V, packed, no_missing):
-        ctx.save_for_backward(packed)
-        ctx.no_missing = no_missing
-        return xv(packed, V, no_missing)
+    def forward(ctx, V, packed, no_missing, blk_idx, blk):
+        ctx.save_for_backward(packed, blk_idx)
+        ctx.no_missing, ctx.blk = no_missing, blk
+        return xv(packed, V, no_missing, blk_idx, blk)
 
     @staticmethod
     def backward(ctx, dXp):
-        (packed,) = ctx.saved_tensors
-        return dv(packed, dXp.contiguous(), ctx.no_missing), None, None
+        packed, blk_idx = ctx.saved_tensors
+        return (dv(packed, dXp.contiguous(), ctx.no_missing, blk_idx,
+                   ctx.blk), None, None, None, None)
 
 
 class PlaneBCE(torch.autograd.Function):
-    """Sum of BCE(clamp(q @ P, 0, 1), x) over the batch plane, weighted by
-    col_mask[m] * row_w[b] when ``masked``.
+    """Sum of BCE(clamp(q @ P, 0, 1), x) over one head's batch plane,
+    weighted by col_mask[m] * row_w[b] when ``masked``.
 
-    ``logged``: the forward runs K4 and returns the loss, keeping dq and dP
-    (unscaled) for the backward, which scales them by the loss cotangent.
-    Otherwise the forward returns 0 and runs no pass (the value is not
-    wanted), and the backward runs K3 with the loss cotangent as its g."""
+    ``logged`` and ``merged``: the forward runs K4 and returns the loss,
+    keeping dq and dP (unscaled) for the backward, which scales them by the
+    loss cotangent. ``logged``, not ``merged`` (the split program): the
+    forward runs K6 for the loss, the backward K3 with the loss cotangent as
+    its g. Not ``logged``: the forward returns 0 and runs no pass (the value
+    is not wanted), and the backward runs K3. At g = 1 the merged and split
+    gradients are the same numbers: K3 and K4 share their arithmetic."""
 
     @staticmethod
     def forward(ctx, q, P, packed, col_mask, row_w, masked, no_missing,
-                logged):
-        ctx.logged = logged
-        if logged:
-            dq, dP, loss = dq_dp(packed, q, P, col_mask, row_w, 1.0, masked,
-                                 no_missing, with_loss=True)
+                logged, merged, blk_idx, blk):
+        ctx.merged = logged and merged
+        args = (packed, q, P, col_mask, row_w)
+        if ctx.merged:
+            dq, dP, loss = dq_dp(*args, 1.0, masked, no_missing,
+                                 with_loss=True, blk_idx=blk_idx, blk=blk)
             ctx.save_for_backward(dq, dP)
             return loss
-        ctx.save_for_backward(q, P, packed, col_mask, row_w)
-        ctx.masked, ctx.no_missing = masked, no_missing
+        ctx.save_for_backward(*args, blk_idx)
+        ctx.masked, ctx.no_missing, ctx.blk = masked, no_missing, blk
+        if logged:
+            return bce_sum(*args, masked, no_missing, blk_idx, blk)
         return q.new_zeros(())
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.logged:
+        if ctx.merged:
             dq, dP = ctx.saved_tensors
             dP = dP * g
         else:
-            q, P, packed, col_mask, row_w = ctx.saved_tensors
+            packed, q, P, col_mask, row_w, blk_idx = ctx.saved_tensors
             dq, dP, _ = dq_dp(packed, q, P, col_mask, row_w, g, ctx.masked,
-                              ctx.no_missing)
-        return dq * g, dP, None, None, None, None, None, None
+                              ctx.no_missing, blk_idx=blk_idx, blk=ctx.blk)
+        return (dq * g, dP) + (None,) * 9
 
 
 def fused_training_loss(model, packed: torch.Tensor, col_mask: torch.Tensor,
                         row_w: torch.Tensor, masked: bool, no_missing: bool,
-                        logged: bool
+                        logged: bool, merged: bool = True,
+                        blk_idx: Optional[torch.Tensor] = None, blk: int = 1
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(BCE loss summed over heads, {head: Q}) of a models.qp.QPModel on
-    one packed batch (B, W) uint8; ``loss.backward()`` fills the gradients
-    of V, the encoder and every P through K3 (or K4's), the encoder's
-    autograd and K5. The loss is 0 on unlogged steps (``logged=False``)."""
-    Xp = XV.apply(model.V, packed, no_missing)
+    """(BCE loss summed over heads in ascending K, {head: Q}) of a
+    models.qp.QPModel on one packed batch: ``packed`` (B, W) uint8, or the
+    resident rows with ``blk_idx`` (int32, B / blk block ids) for an indexed
+    batch. ``loss.backward()`` fills the gradients of V, the encoder and
+    every P through K3 (or K4's), the encoder's autograd and K5. The loss is
+    0 on unlogged steps (``logged=False``); on logged ones it comes from K4
+    (``merged``, the default) or K6 (the split program)."""
+    Xp = XV.apply(model.V, packed, no_missing, blk_idx, blk)
     qs = model.encode_from_xp(Xp)
     loss = None
     for hk, q in qs.items():
         term = PlaneBCE.apply(q, model.decoders[hk], packed, col_mask, row_w,
-                              masked, no_missing, logged)
+                              masked, no_missing, logged, merged, blk_idx,
+                              blk)
         loss = term if loss is None else loss + term
     return loss, qs

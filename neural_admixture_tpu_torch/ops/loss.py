@@ -1,4 +1,4 @@
-"""The training loss with torch's own BCE and clamp numerics.
+"""The training losses with torch's own BCE, clamp and CE numerics.
 
 ``clamped_bce_sum`` is the reference's decoder-output clamp plus summed BCE
 (torch.nn.BCELoss(reduction='sum') of clamp(Q @ P, 0, 1) against x =
@@ -13,8 +13,8 @@ The column mask (SNP padding) and row weights (batch padding) weight both
 value and gradient. Only the reconstruction is differentiable: x and the
 masks get zero cotangents (they are data, never parameters).
 
-The supervised cross-entropy waits for supervised mode (ROADMAP.md Queue 1
-item 8).
+``softmax_cross_entropy_sum`` is the supervised term, the counterpart of the
+JAX package's ops/loss.py ``softmax_cross_entropy_sum``.
 """
 import torch
 
@@ -53,3 +53,16 @@ def clamped_bce_sum(raw_rec: torch.Tensor, x: torch.Tensor,
     [0, 1]; col_mask: (M,) 1 for real SNP columns, 0 for padding;
     row_weight: (B,) 1 for real samples, 0 for padded batch rows."""
     return _ClampedBCESum.apply(raw_rec, x, col_mask, row_weight)
+
+
+def softmax_cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
+                              row_weight: torch.Tensor) -> torch.Tensor:
+    """torch.nn.CrossEntropyLoss(reduction='sum') of ``logits`` (B, k)
+    against ``labels`` (B,) int, each row weighted by ``row_weight``.
+
+    The reference feeds the *softmaxed* Q into CrossEntropyLoss as if it
+    were logits (its model/neural_admixture.py:472-473); callers reproduce
+    that by passing probabilities here."""
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels[:, None].to(torch.int64))[:, 0]
+    return torch.sum((logz - picked) * row_weight)

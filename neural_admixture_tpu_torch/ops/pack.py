@@ -10,7 +10,16 @@ already contiguous in device memory, so none of that is carried over: V, P
 and every other SNP-indexed array stay in natural order, and nothing needs
 undoing at a host boundary. Any reordering a kernel wants (for shared-memory
 banks, say) happens inside the kernel.
+
+A batch reaches a kernel in one of two forms: gathered, its own (B, W)
+array; or indexed (K7), the resident (n_rows, W) array with an int32 vector
+``blk_idx`` of sampled ``blk``-row blocks, batch row r being resident row
+``blk_idx[r // blk] * blk + r % blk`` (:func:`batch_rows`). The plain
+versions gather (:func:`gather_batch`) and then compute as for a gathered
+batch; the kernels read the resident rows in place.
 """
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -51,3 +60,43 @@ def packed_has_missing(packed: np.ndarray, block_bytes: int = 1 << 24
         if np.any(blk & (blk >> 1) & 0x55):
             return True
     return False
+
+
+def batch_rows(blk_idx: torch.Tensor, blk: int) -> torch.Tensor:
+    """The resident rows (int64) of an indexed batch, in batch order:
+    ``blk_idx[r // blk] * blk + r % blk`` for r < len(blk_idx) * blk."""
+    ar = torch.arange(blk, dtype=torch.int64, device=blk_idx.device)
+    return (blk_idx.to(torch.int64)[:, None] * blk + ar).reshape(-1)
+
+
+def gather_batch(packed: torch.Tensor, blk_idx: Optional[torch.Tensor],
+                 blk: int) -> torch.Tensor:
+    """The batch as its own array: ``packed`` itself when gathered
+    (``blk_idx`` None), else the rows of :func:`batch_rows`."""
+    if blk_idx is None:
+        return packed
+    return packed.index_select(0, batch_rows(blk_idx, blk))
+
+
+def batch_size(packed: torch.Tensor, blk_idx: Optional[torch.Tensor],
+               blk: int) -> int:
+    """Rows of the batch that (``packed``, ``blk_idx``, ``blk``) describe,
+    checking the block index: an int32 1-D tensor on ``packed``'s device,
+    ``blk`` >= 1 and every block inside ``packed`` when it is on the CPU (on
+    the card that check would wait for the device; the kernels trust it)."""
+    if blk_idx is None:
+        return packed.shape[0]
+    if blk_idx.dtype != torch.int32 or blk_idx.dim() != 1 \
+            or blk_idx.device != packed.device or \
+            not blk_idx.is_contiguous():
+        raise ValueError(f"blk_idx must be a contiguous 1-D int32 tensor on "
+                         f"{packed.device}, got {blk_idx.dtype} "
+                         f"{tuple(blk_idx.shape)} on {blk_idx.device}")
+    if int(blk) < 1:
+        raise ValueError(f"blk must be >= 1, got {blk}")
+    if packed.device.type == "cpu" and blk_idx.numel() and (
+            int(blk_idx.min()) < 0
+            or (int(blk_idx.max()) + 1) * blk > packed.shape[0]):
+        raise ValueError(f"blk_idx reaches outside the {packed.shape[0]} "
+                         f"packed rows (blocks of {blk})")
+    return blk_idx.numel() * int(blk)

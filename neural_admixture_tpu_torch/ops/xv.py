@@ -5,21 +5,28 @@ replaces, what bounds it on an H100, and how it is laid out). This module
 holds its wrapper :func:`xv` and its plain PyTorch version :func:`xv_plain`.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel, or
-the wrapper raises. ``xv.launches`` counts the kernel launches.
+the wrapper raises. A batch is gathered (its own rows) or indexed (K7: the
+resident rows and a block index, ops/pack.py). ``xv.launches`` counts the
+launches on gathered batches, ``xv.indexed_launches`` those on indexed ones.
 """
 import ctypes
+from typing import Optional
 
 import torch
 
 from .fused import unpack_dosage
+from .pack import batch_size, gather_batch
 
 MAX_D = 32
 
 
-def xv_plain(packed: torch.Tensor, V: torch.Tensor,
-             chunk_snps: int = 65536) -> torch.Tensor:
-    """Plain version: unpack ``chunk_snps`` SNPs at a time (never the whole
-    (B, 4W) fp32 X) and accumulate ``x_chunk @ V_chunk``."""
+def xv_plain(packed: torch.Tensor, V: torch.Tensor, chunk_snps: int = 65536,
+             blk_idx: Optional[torch.Tensor] = None, blk: int = 1
+             ) -> torch.Tensor:
+    """Plain version: gather an indexed batch, then unpack ``chunk_snps``
+    SNPs at a time (never the whole (B, 4W) fp32 X) and accumulate
+    ``x_chunk @ V_chunk``."""
+    packed = gather_batch(packed, blk_idx, blk)
     B, W = packed.shape
     out = torch.zeros(B, V.shape[1], dtype=torch.float32, device=V.device)
     cw = max(1, chunk_snps // 4)
@@ -33,7 +40,7 @@ def _lib():
     from .. import _build
     lib = _build.load("xv")
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.na_xv.argtypes = [vp, vp, vp, vp, ll, ll, i, i, i, vp]
+    lib.na_xv.argtypes = [vp, vp, vp, vp, ll, ll, i, i, i, vp, i, vp]
     lib.na_xv.restype = i
     lib.na_xv_rows_per_block.argtypes = [i]
     lib.na_xv_rows_per_block.restype = i
@@ -59,21 +66,24 @@ def _check(packed: torch.Tensor, V: torch.Tensor) -> None:
         raise ValueError(f"xv supports 1 <= D <= {MAX_D}, got D={V.shape[1]}")
 
 
-def xv(packed: torch.Tensor, V: torch.Tensor,
-       no_missing: bool = False) -> torch.Tensor:
-    """Xp (B, D) fp32 = X @ V, X the dosage/2 of ``packed`` (B, W) uint8
-    with code 3 -> 0, V (4W, D) fp32.
+def xv(packed: torch.Tensor, V: torch.Tensor, no_missing: bool = False,
+       blk_idx: Optional[torch.Tensor] = None, blk: int = 1) -> torch.Tensor:
+    """Xp (B, D) fp32 = X @ V, X the dosage/2 of the batch's packed rows
+    with code 3 -> 0, V (4W, D) fp32. The batch is ``packed`` (B, W) uint8,
+    or with ``blk_idx`` (int32, B / blk blocks) the rows of the resident
+    ``packed`` that it indexes, read in place on the card.
 
     ``no_missing``: the caller has checked that no code is 3
     (ops.pack.packed_has_missing); the kernel then skips the mask. The plain
     version masks anyway (the result is the same)."""
     _check(packed, V)
+    B = batch_size(packed, blk_idx, blk)
     if packed.device.type == "cpu":
-        return xv_plain(packed, V)
+        return xv_plain(packed, V, blk_idx=blk_idx, blk=blk)
     if packed.device.type != "cuda":
         raise ValueError(f"xv runs on CPU or CUDA tensors, not "
                          f"{packed.device}")
-    B, W = packed.shape
+    W = packed.shape[1]
     D = V.shape[1]
     if W % 4 or packed.data_ptr() % 4:
         raise ValueError(f"the xv kernel reads 32-bit words: packed width "
@@ -97,12 +107,17 @@ def xv(packed: torch.Tensor, V: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.na_xv(packed.data_ptr(), V.data_ptr(), partial.data_ptr(),
                         out.data_ptr(), B, W, D, n_split, int(no_missing),
-                        stream)
+                        None if blk_idx is None else blk_idx.data_ptr(),
+                        int(blk), stream)
     if err != 0:
         raise RuntimeError(f"xv kernel launch failed: CUDA error {err} "
                            f"(B={B}, W={W}, D={D}, n_split={n_split})")
-    xv.launches += 1
+    if blk_idx is None:
+        xv.launches += 1
+    else:
+        xv.indexed_launches += 1
     return out
 
 
 xv.launches = 0
+xv.indexed_launches = 0

@@ -2,27 +2,48 @@
 
 The JAX package's train/engine.py on one device, with its semantics:
 fixed-epoch Adam (betas (0.9, 0.95), eps 1e-8) over V, the encoder and
-every P, P clamped to [0, 1] after every step, the summed BCE loss computed
-and logged every ``log_every`` epochs only, then a full-data Q pass.
+every P, P clamped to [0, 1] after every step, the summed loss computed
+and logged every ``log_every`` epochs only (every 2 in supervised mode, as
+the JAX engine's engine.py:1276), then a full-data Q pass.
 
+  * Heads: one head and one decoder per K of ``cfg.ks``, trained jointly;
+    the loss sums every head's BCE (ascending K). Supervised mode
+    (``pops``: one integer label per row) adds ``supervised_loss_weight``
+    times the CE of the smallest K's Q against the labels
+    (:func:`smallest_head`; the reference feeds the softmaxed Q as logits).
   * Batches: with ``sample_block`` > 1 the rows are pre-shuffled once
-    (``np.random.default_rng(seed).permutation(N)``, undone on Q) and
-    batches are runs of ``sample_block`` consecutive resident rows; an epoch
-    is nb - 1 full batches of real rows (the unmasked kernels) and one
-    remainder batch that carries the partial block and the padding (the
-    masked kernels). ``sample_block`` = 1 samples single rows. Geometry with
-    alignment 1 (the JAX package's XLA path, engine.py:176-244).
+    (``np.random.default_rng(seed).permutation(N)``, undone on Q; the
+    labels follow it) and batches are runs of ``sample_block`` consecutive
+    resident rows; an epoch is nb - 1 full batches of real rows (the
+    unmasked kernels) and one remainder batch that carries the partial
+    block and the padding (the masked kernels). ``sample_block`` = 1
+    samples single rows. Geometry with alignment 1 (the JAX package's XLA
+    path, engine.py:176-244).
   * The packed rows, V, P and the Adam state stay on the device; a batch is
     gathered there from the resident (n_rows, W) uint8 tensor, block by
-    block, and goes through ops/fused_step.py (kernels K2-K5).
+    block, and goes through ops/fused_step.py (kernels K2-K6).
+  * Three program choices, read from the JAX package's own environment
+    variables where its engine reads them: ``NA_TPU_FORCE_MASKED=1`` runs
+    the masked kernels on every batch (engine.py:242-243);
+    ``NA_TPU_SPLIT_LOSS=1`` runs logged epochs as K6 forward + K3 backward
+    instead of K4 (engine.py:421-422); ``NA_TPU_INDEXED=1`` makes the full
+    batches read their blocks in place from the resident rows by block id
+    (K7, engine.py:411-413) instead of gathering them; the remainder batch
+    stays gathered and masked. The port indexes full batches whenever
+    ``sample_block`` > 1: the JAX package's Mosaic limits (blocks of a
+    multiple of 8 rows, engine.py:412, and ``INDEXED_TB_CAP``,
+    ops/fused_step.py:917-925) do not apply to the card's kernels. Every
+    choice computes the same numbers: the same rows reach the same
+    arithmetic.
   * The encoder init and the per-epoch batch plans come from CPU generators
     seeded from ``seed`` (utils/seeding.py), so a run on the card and a run
     on the CPU draw identical plans and initial weights. ``launch_training``
     also takes both from the caller (the tests hand in the JAX package's).
 
-Left for later slices (ROADMAP.md Queue 1): multi-head and supervised
-(item 8), checkpoints (9), host streaming (10), several devices (12).
+Left for later slices (ROADMAP.md Queue 1): checkpoints (item 9), host
+streaming (10), several devices (12).
 """
+import os
 import sys
 import time
 from dataclasses import dataclass, field
@@ -33,7 +54,8 @@ import torch
 
 from ..models import qp
 from ..ops.fused_step import fused_training_loss
-from ..ops.pack import packed_has_missing
+from ..ops.loss import softmax_cross_entropy_sum
+from ..ops.pack import batch_rows, packed_has_missing
 from ..utils.logger import log, setup_logging
 from ..utils.metrics import fst_table
 from ..utils.seeding import generator
@@ -55,10 +77,16 @@ class TrainConfig:
     hidden_size: int = 1024
     n_components: int = 8
     ks: List[int] = field(default_factory=lambda: [3])
+    supervised_loss_weight: float = 100.0
     log_every: int = 5
     progress: bool = True
     sample_block: int = 1
     device: str = "cuda"
+
+
+def smallest_head(qs) -> str:
+    """Head key of the numerically smallest K ('k10' sorts after 'k9')."""
+    return min(qs, key=lambda hk: int(hk[1:]))
 
 
 def block_geometry(N: int, batch_size: int, blk: int
@@ -94,6 +122,19 @@ def epoch_plan(gen: torch.Generator, N: int, batch_size: int, blk: int,
             perm[(nb - 1) * b_round:])
 
 
+def program_choices(blk: int) -> Tuple[bool, bool, bool]:
+    """(full_real, indexed, merged) from the JAX package's environment
+    variables (see the module docstring): full batches run unmasked unless
+    NA_TPU_FORCE_MASKED=1; they are indexed under NA_TPU_INDEXED=1 when
+    they are unmasked whole blocks; logged epochs run merged (K4) unless
+    NA_TPU_SPLIT_LOSS=1."""
+    full_real = os.environ.get("NA_TPU_FORCE_MASKED") != "1"
+    indexed = (full_real and blk > 1
+               and os.environ.get("NA_TPU_INDEXED") == "1")
+    merged = os.environ.get("NA_TPU_SPLIT_LOSS") != "1"
+    return full_real, indexed, merged
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -123,17 +164,19 @@ class NeuralAdmixtureTrainer:
     def launch_training(self, P_init: np.ndarray, packed: np.ndarray,
                         V: np.ndarray, M: int, N: int,
                         init_params: Optional[Dict] = None,
-                        plans: Optional[Callable[[int], Plan]] = None
+                        plans: Optional[Callable[[int], Plan]] = None,
+                        pops: Optional[np.ndarray] = None
                         ) -> Tuple[List[np.ndarray], List[np.ndarray], Dict]:
         """Train and return (Qs, Ps, params): Q (N, k) in input row order
         and P (M, k) per K ascending, and the trained parameter dict (numpy,
         the JAX package's layout, V and P padded to m_pad).
 
         P_init: (sum(ks), M) initial P rows; packed: (N, W) uint8 host rows;
-        V: (D, M) from the RSVD. ``init_params``: the initial parameter dict
-        (decoders included) instead of building one from V, P_init and
-        draws; ``plans``: epoch -> (idx_full, idx_rem) instead of drawing
-        them."""
+        V: (D, M) from the RSVD; ``pops``: (N,) integer labels in 0..K-1 in
+        input row order, which turn on supervised mode. ``init_params``:
+        the initial parameter dict (decoders included) instead of building
+        one from V, P_init and draws; ``plans``: epoch -> (idx_full,
+        idx_rem) instead of drawing them."""
         cfg = self.cfg
         device = torch.device(cfg.device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -143,6 +186,9 @@ class NeuralAdmixtureTrainer:
         blk = max(1, cfg.sample_block)
         batch_size = min(cfg.batch_size, N)
         m_pad = packed.shape[1] * 4
+        full_real, indexed, merged = program_choices(blk)
+        supervised = pops is not None
+        log_every = 2 if supervised else cfg.log_every
 
         # Resident layout: the one-time row pre-shuffle for block sampling,
         # then zero rows up to whole blocks of whole batches.
@@ -159,6 +205,7 @@ class NeuralAdmixtureTrainer:
         no_missing = not packed_has_missing(data)
         resident = torch.from_numpy(np.ascontiguousarray(data)).to(device)
         col_mask = (torch.arange(m_pad, device=device) < M).to(torch.float32)
+        pops_dev = self._prepare_pops(pops, N, device) if supervised else None
         t_phase = self._lap("layout", t_phase, device)
 
         if init_params is None:
@@ -176,28 +223,40 @@ class NeuralAdmixtureTrainer:
         log.info("")
         log.info("    Starting training...")
         log.info("")
-        blk_ar = torch.arange(blk, device=device)
         self.logged_losses, self.epoch_seconds = {}, []
         _sync(device)
         t_train = time.perf_counter()
         for epoch in range(cfg.epochs):
             t_epoch = time.perf_counter()
-            logged = epoch % cfg.log_every == 0
+            logged = epoch % log_every == 0
             # The plan goes to the device once per epoch: a pageable copy
             # per step would wait for the previous step's kernels.
             idx_full, idx_rem = (
                 torch.from_numpy(np.array(a, dtype=np.int64)).to(device)
                 for a in plans(epoch))
-            batches = [(b, False) for b in idx_full] + [(idx_rem, True)]
+            blk_ids = idx_full.to(torch.int32) if indexed else None
             loss_sum = None
-            for idx, masked in batches:
-                rows = (idx[:, None] * blk + blk_ar).reshape(-1)
-                row_w = (rows < N).to(torch.float32)
-                xb = resident.index_select(0, torch.clamp(rows,
-                                                          max=n_rows - 1))
+            for i in range(len(idx_full) + 1):
+                full = i < len(idx_full)
+                rows = batch_rows(idx_full[i] if full else idx_rem, blk)
+                blk_idx = blk_ids[i] if indexed and full else None
+                if blk_idx is not None:
+                    # Read in place: all rows real (full_real), no copy.
+                    xb, row_w = resident, torch.ones(rows.shape[0],
+                                                     device=device)
+                else:
+                    row_w = (rows < N).to(torch.float32)
+                    xb = resident.index_select(
+                        0, torch.clamp(rows, max=n_rows - 1))
                 opt.zero_grad(set_to_none=True)
-                loss, _ = fused_training_loss(model, xb, col_mask, row_w,
-                                              masked, no_missing, logged)
+                loss, qs = fused_training_loss(
+                    model, xb, col_mask, row_w, not (full and full_real),
+                    no_missing, logged, merged, blk_idx, blk)
+                if supervised:
+                    pops_b = pops_dev[torch.clamp(rows, max=N - 1)]
+                    loss = loss + cfg.supervised_loss_weight * \
+                        softmax_cross_entropy_sum(qs[smallest_head(qs)],
+                                                  pops_b, row_w)
                 loss.backward()
                 opt.step()
                 model.restrict_P()
@@ -235,6 +294,17 @@ class NeuralAdmixtureTrainer:
               for k in self.ks]
         self._lap("results", t_phase, device)
         return Qs, Ps, params
+
+    def _prepare_pops(self, pops, N: int, device) -> torch.Tensor:
+        """The labels in resident row order (they follow the pre-shuffle,
+        as the JAX engine's engine.py:1215-1232), on the device."""
+        pops_np = np.asarray(pops, dtype=np.int64)
+        if pops_np.shape != (N,):
+            raise ValueError(f"pops must hold one label per sample: shape "
+                             f"{pops_np.shape}, N = {N}")
+        if self._row_order is not None:
+            pops_np = pops_np[self._row_order]
+        return torch.from_numpy(pops_np).to(device)
 
     def _infer_q(self, model, resident: torch.Tensor, N: int,
                  no_missing: bool, device) -> List[np.ndarray]:

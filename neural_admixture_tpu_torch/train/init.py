@@ -1,4 +1,6 @@
-"""P initialisation, unsupervised (the JAX package's train/init.py):
+"""P initialisation (the JAX package's train/init.py).
+
+Unsupervised:
   1. project the genotypes onto the RSVD basis in row blocks, X_pca =
      (G/2) @ V^T, with missing genotypes NOT imputed (3/2 = 1.5 enters the
      projection, as in the reference);
@@ -10,9 +12,13 @@ The projection runs on the packed rows' device, blocked by bytes (about
 1 GB of fp32 a block); the GMM runs on the host CPU in fp32 (N x D points,
 a few hundred kilobytes), with its draws from a CPU ``torch.Generator``
 seeded from (seed, K), so the card and the CPU start from the same seeding.
-Supervised init waits for supervised mode (ROADMAP.md Queue 1 item 8).
+
+Supervised (one K): the labels, sorted by name, become 0..K-1
+(:func:`encode_populations`), and P_k's row c is the mean RAW code of the
+rows labelled c, missing (3) included, as the reference does
+(:func:`init_p_supervised_packed`, on the packed rows' device).
 """
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,3 +59,39 @@ def init_p_unsupervised(packed: torch.Tensor, V: np.ndarray, N: int, M: int,
         res = fit_gmm(X, K, generator(seed, K))
         blocks.append(torch.clamp(res.means @ Vh, 5e-6, 1.0 - 5e-6).numpy())
     return np.concatenate(blocks, axis=0)
+
+
+def encode_populations(pops: Sequence[str], K: int
+                       ) -> Tuple[np.ndarray, Dict[str, int]]:
+    """String labels -> (int64 indices 0..K-1, {label: index}), the labels
+    sorted by name (the JAX package's train/init.py encode_populations).
+    Raises if the labels name other than K populations."""
+    ancestry = {anc: i for i, anc in enumerate(sorted(np.unique(pops)))}
+    if len(ancestry) != K:
+        raise ValueError(f"Number of ancestries in training ground truth "
+                         f"({len(ancestry)}) is not equal to the value of K "
+                         f"({K})")
+    return np.asarray([ancestry[p] for p in pops], dtype=np.int64), ancestry
+
+
+def init_p_supervised_packed(packed: torch.Tensor, y: np.ndarray, K: int,
+                             M: int, block_bytes: int = 1 << 30
+                             ) -> np.ndarray:
+    """(K, M) float32: row c is the mean raw code (0..3, missing 3
+    included) over the packed rows (N, W) uint8 labelled c by ``y`` (N,).
+
+    Runs on ``packed``'s device in row blocks of about ``block_bytes`` of
+    fp64 codes. The per-class sums are fp64 adds of small integers
+    (``index_add_``), exact in any order and free of the TF32 setting."""
+    dev = packed.device
+    y_t = torch.as_tensor(np.asarray(y, np.int64), device=dev)
+    N = y_t.shape[0]
+    sums = torch.zeros(K, 4 * packed.shape[1], dtype=torch.float64,
+                       device=dev)
+    rows = max(1, block_bytes // (8 * 4 * packed.shape[1]))
+    for i in range(0, N, rows):
+        codes = unpack_genotypes(packed[i:min(i + rows, N)])
+        sums.index_add_(0, y_t[i:i + rows], codes.to(torch.float64))
+    counts = torch.bincount(y_t, minlength=K).to(torch.float64)
+    means = sums[:, :M] / torch.clamp_min(counts[:, None], 1.0)
+    return means.to(torch.float32).cpu().numpy()

@@ -1,8 +1,10 @@
 """Train mode: read -> pack -> RSVD -> init P -> train -> save.
 
 The JAX package's train/run.py ``main_train`` for the ported slice: a
-PLINK BED, one device, unsupervised, one K. The packed rows go to the
-device once and every consumer (RSVD, PCA projection, training, the Q
+PLINK BED on one device, one K (``--k``) or a K range (``--min_k`` ..
+``--max_k``, one head per K, trained jointly), unsupervised or supervised
+(``--pops_path``, one K). The packed rows go to the device once and every
+consumer (RSVD, PCA projection or the supervised means, training, the Q
 pass) reads them there; the (N, M) genotype matrix never exists.
 Everything else raises NotImplementedError naming the ROADMAP.md item that
 ports it.
@@ -20,7 +22,8 @@ from ..ops.loglikelihood import loglikelihood_packed
 from ..ops.rsvd import rsvd
 from ..utils.logger import log, setup_logging
 from .engine import NeuralAdmixtureTrainer, TrainConfig
-from .init import init_p_unsupervised
+from .init import (encode_populations, init_p_supervised_packed,
+                   init_p_unsupervised)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -30,12 +33,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def check_ported(args) -> None:
     """Raise on every option outside the ported slice."""
-    if args.pops_path:
-        raise _not_ported("Supervised mode (--pops_path)", "8 (multi-head "
-                          "K ranges and supervised mode)")
-    if args.k is None:
-        raise _not_ported("--min_k/--max_k (several heads)", "8 (multi-head "
-                          "K ranges and supervised mode)")
     if args.cv:
         raise _not_ported("--cv", "13 (CV, restarts and the bench)")
     if int(args.init_restarts or 1) > 1:
@@ -52,14 +49,36 @@ def check_ported(args) -> None:
                           "13 (CV, restarts and the bench)")
 
 
+def read_pops(pops_path: str):
+    """The labels of ``--pops_path``, one per line, blank lines skipped (as
+    the JAX package's train/run.py _read_pops)."""
+    log.info("    Population file provided!")
+    with open(pops_path, "r") as fb:
+        return [p.strip() for p in fb.readlines() if p.strip()]
+
+
 def main_train(args, t0: float) -> int:
     setup_logging()
     check_ported(args)
+    if args.k is not None:
+        K, min_k, max_k = int(args.k), None, None
+        ks = [K]
+    else:
+        K, min_k, max_k = None, int(args.min_k), int(args.max_k)
+        ks = list(range(min_k, max_k + 1))
     device = select_device(int(args.num_gpus), getattr(args, "mesh", None),
                            "training")
-    K = int(args.k)
     packed, N, M = read_packed(args.data_path)
     log.info(f"    Data contains {N} samples and {M} SNPs.")
+    y_num = None
+    if args.pops_path:
+        pops = read_pops(args.pops_path)
+        if K is None:
+            raise ValueError("Supervised mode requires --k (a single K).")
+        if len(pops) != N:
+            raise ValueError(f"Population file has {len(pops)} labels but "
+                             f"the data has {N} samples.")
+        y_num, _ = encode_populations(pops, K)
     packed_dev = torch.from_numpy(packed).to(device)
 
     log.info("")
@@ -69,34 +88,44 @@ def main_train(args, t0: float) -> int:
     V = rsvd(packed_dev, N, M, int(args.n_components), int(args.seed))
     log.info(f"    Total time SVD: {time.time() - t_svd:.4f}s")
     log.info("")
-    log.info("")
-    log.info("    Running Gaussian Mixture in PCA subspace...")
-    log.info("")
-    P_init = init_p_unsupervised(packed_dev, V, N, M, [K], int(args.seed))
+    if y_num is not None:
+        log.info("")
+        log.info("    Running Supervised Mode...")
+        log.info("")
+        P_init = init_p_supervised_packed(packed_dev, y_num, K, M)
+    else:
+        log.info("")
+        log.info("    Running Gaussian Mixture in PCA subspace...")
+        log.info("")
+        P_init = init_p_unsupervised(packed_dev, V, N, M, ks, int(args.seed))
     del packed_dev
 
     cfg = TrainConfig(
         epochs=int(args.epochs), batch_size=int(args.batch_size),
         learning_rate=float(args.learning_rate), seed=int(args.seed),
         hidden_size=int(args.hidden_size),
-        n_components=int(args.n_components), ks=[K],
+        n_components=int(args.n_components), ks=ks,
+        supervised_loss_weight=float(args.supervised_loss_weight),
         progress=not args.no_progress,
         sample_block=int(args.sample_block or 1), device=str(device))
     trainer = NeuralAdmixtureTrainer(cfg)
-    Qs, Ps, params = trainer.launch_training(P_init, packed, V, M, N)
+    Qs, Ps, params = trainer.launch_training(P_init, packed, V, M, N,
+                                             pops=y_num)
 
-    ll = loglikelihood_packed(packed, M, Ps[0].astype(np.float64),
-                              Qs[0].astype(np.float64), device=device)
-    # ':2f' (not ':.2f') is the reference's own format, kept for log
-    # scrapers.
-    log.info(f"    Log-likelihood: {ll:2f}.")
+    for i, k in enumerate(ks):
+        ll = loglikelihood_packed(packed, M, Ps[i].astype(np.float64),
+                                  Qs[i].astype(np.float64), device=device)
+        suffix = "" if K is not None else f" for K={k}"
+        # ':2f' (not ':.2f') is the reference's own format, kept for log
+        # scrapers.
+        log.info(f"    Log-likelihood{suffix}: {ll:2f}.")
 
     Path(args.save_dir).mkdir(parents=True, exist_ok=True)
     save_checkpoint(params, args.name, args.save_dir, strip_decoders=True)
     save_pt_checkpoint(params, args.name, args.save_dir, num_snps=M)
-    save_config(args.name, args.save_dir, ks=[K], num_features=V.shape[0],
+    save_config(args.name, args.save_dir, ks=ks, num_features=V.shape[0],
                 hidden_size=int(args.hidden_size), num_snps=M)
-    write_outputs(Qs, args.name, K, None, None, args.save_dir, Ps)
+    write_outputs(Qs, args.name, K, min_k, max_k, args.save_dir, Ps)
 
     log.info("")
     log.info(f"    Total elapsed time: {time.time() - t0:.2f} seconds.")

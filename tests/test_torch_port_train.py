@@ -389,8 +389,6 @@ def test_cli_train_on_card_without_cuda_exits_nonzero(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--pops_path", "p.txt"], "item 8"),
-    (["--min_k", "2", "--max_k", "4"], "item 8"),
     (["--cv", "3"], "item 13"),
     (["--init_restarts", "2"], "item 13"),
     (["--checkpoint_every", "2"], "item 9"),
@@ -402,9 +400,7 @@ def test_cli_train_on_card_without_cuda_exits_nonzero(tmp_path):
 ])
 def test_unported_train_options_raise(tmp_path, extra, match):
     argv = ["train", "--data_path", DEMO_BED, "--save_dir", str(tmp_path),
-            "--name", "m", "--num_gpus", "0"]
-    if "--min_k" not in extra:
-        argv += ["--k", "3"]
+            "--name", "m", "--num_gpus", "0", "--k", "3"]
     with pytest.raises(NotImplementedError, match=match):
         tentry.main(argv + extra)
 
