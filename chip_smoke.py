@@ -13,7 +13,8 @@ non-zero exit and no result line:
   3. kernel vs plain: xv, dq_dp, loss_dq_dp, dv and bce_sum against their
      plain versions at small ragged shapes; the indexed form of each (K7:
      a block index into resident rows) against the plain version and bit
-     for bit against the same kernel on the gathered batch;
+     for bit against the same kernel on the gathered batch; dq_dp at g = 1
+     bit for bit against loss_dq_dp;
   4. full width: infer_q at N=4096, M=1,000,000, K=8, H=1024, D=8, batch 1024
      (seeded random rows and weights); counts the kernel launches, times the
      kernel, its plain version and each part of a batch;
@@ -28,16 +29,27 @@ non-zero exit and no result line:
      phase 6's V, three 2-epoch runs from the same start: the default
      program, NA_TPU_INDEXED=1 and NA_TPU_INDEXED=1 NA_TPU_SPLIT_LOSS=1;
      exact launch counts of each, the runs held to each other, the indexed
-     forms, bce_sum and the gather they replace timed at batch 800;
+     forms, bce_sum and the gather they replace timed at batch 800, and
+     dq_dp and loss_dq_dp per head;
   7. CLI: ``train`` on the demo BED on the card and on the CPU (K = 7, a
      K range 2..4, and supervised with the argmax labels of the reference's
      K = 7 Q, which name 5 populations): the output files, the .npz through ``infer``, the demo's golden
      measures, and the two runs held to each other by the trajectory rule;
-  8. one JSON line with every kernel's numbers;
+  A/B (only with ``--ab DIR``): the kernels of DIR, a copy of another
+     commit's csrc/ with the same C interfaces (the parent's), built into
+     DIR/build while the phases run, timed against the checkout's in the
+     order parent, change, change, parent: K2 and K5, K3, K4 and K6 per
+     head of K = 2..10, and a warm unlogged training step at K = 8 and
+     K = 2..10 (chiprun_out/ab.json);
+  8. one JSON line with every kernel's numbers (those of the phases run);
   9. the last line: {"ok": true, "device": {...}}.
+
+``--phases env,build,kernels`` runs only those phases (a short check of a
+kernel change); the default is every phase.
 
 Imports nothing of JAX or of the JAX package.
 """
+import ctypes
 import json
 import os
 import subprocess
@@ -79,9 +91,10 @@ from neural_admixture_tpu_torch.train.init import (  # noqa: E402
 from neural_admixture_tpu_torch.utils.seeding import generator  # noqa: E402
 
 SEED = 0
-# H100 SXM data sheet: HBM3 rate and the fp32 rate of the CUDA cores.
+# H100 SXM data sheet: the HBM3 rate, and the peak rate of each type of
+# operation: fp32 on the CUDA cores, TF32 on the tensor cores (dense).
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12}
 # Full width: bench.py's M, N, K and the CLI defaults for D, H and batch.
 N_FULL, M_FULL, K_FULL, D_FULL, H_FULL, BATCH = 4096, 1_000_000, 8, 8, 1024, 1024
 # Training at full width: the train CLI's batch and sample_block defaults
@@ -339,19 +352,76 @@ def phase_env():
     return card
 
 
+def ptxas_summary(log):
+    """(functions, min and max registers, largest spill stores in bytes)
+    from nvcc's -Xptxas -v output."""
+    import re
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
+    return len(regs), min(regs, default=0), max(regs, default=0), \
+        max(spills, default=0)
+
+
 def phase_build():
     t = phase("2. build")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
     for name, info in _build.build().items():
-        print(f"   {name}: {info['seconds']:.1f} s -> {info['path'].name}")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print("     " + line.strip())
+        n, r_min, r_max, spill = ptxas_summary(info["log"])
+        print(f"   {name}: {info['seconds']:.1f} s -> {info['path'].name}; "
+              f"ptxas: {n} functions, {r_min}-{r_max} registers, spill "
+              f"stores {spill} bytes at most")
+        with open(os.path.join(out_dir, f"ptxas_{name}.log"), "w") as fb:
+            fb.write(info["log"])
     done(t)
+
+
+def check_division(dev, n=1 << 24):
+    """dq_dp's branch-free division of the elementwise step bit for bit
+    against '/' (IEEE, div.rn.f32) on n pairs from its domain: a = rec - x,
+    b = max(rec (1 - rec), 1e-12) for rec uniform on [0, 1], log-uniform
+    down to 2^-149 (denormals), near 1 and exactly 0, 1/2 and 1, and x in
+    {0, 1/2, 1}, and a few a = -0. Returns the share of pairs the kernel
+    hands to '/'."""
+    lib = _build.load("dq_dp")
+    vp = ctypes.c_void_p
+    lib.na_dq_dp_div_check.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, vp]
+    lib.na_dq_dp_div_check.restype = ctypes.c_int
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    u = torch.rand(n, device=dev, generator=gen)
+    kind = torch.randint(0, 4, (n,), device=dev, generator=gen)
+    e = torch.rand(n, device=dev, generator=gen) * 150.0
+    rec = torch.where(kind == 0, u, torch.where(
+        kind == 1, torch.exp2(-e), torch.where(
+            kind == 2, 1.0 - torch.exp2(-e * 0.16), 0.5 * torch.floor(3 * u))))
+    rec = rec.clamp(0.0, 1.0)
+    x = 0.5 * torch.randint(0, 3, (n,), device=dev, generator=gen).float()
+    a = rec - x
+    a[:64] = -0.0  # never made by the kernel; '/' takes it
+    b = torch.clamp_min(rec * (1.0 - rec), 1e-12)
+    fast, ieee = torch.empty_like(a), torch.empty_like(a)
+    err = lib.na_dq_dp_div_check(a.data_ptr(), b.data_ptr(), fast.data_ptr(),
+                                 ieee.data_ptr(), n,
+                                 torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err != 0:
+        raise RuntimeError(f"division check launch failed: CUDA error {err}")
+    taken = ~torch.isnan(fast)
+    if not torch.equal(fast[taken].view(torch.int32),
+                       ieee[taken].view(torch.int32)):
+        bad = (fast[taken].view(torch.int32)
+               != ieee[taken].view(torch.int32)).sum().item()
+        raise AssertionError(f"dq_dp's division differs from '/' in {bad} "
+                             f"of {n} pairs")
+    return 1.0 - taken.float().mean().item()
 
 
 def phase_kernels(dev):
     """Every kernel against its plain version at small ragged shapes."""
     t = phase("3. kernels vs their plain versions")
+    share = check_division(dev)
+    print(f"   dq_dp's branch-free division: bit-equal to '/' on 2^24 pairs "
+          f"of its domain; {share:.2e} of them taken by '/' instead")
     rng = np.random.default_rng(SEED)
     # xv (B, M, D, missing in data, no_missing flag): B not a multiple of
     # the block's rows, M not a multiple of the 512-SNP chunk, D in {4, 8}
@@ -369,16 +439,26 @@ def phase_kernels(dev):
               f"no_missing={no_missing}: max|d| {a:.3e}, "
               f"max|d|/sum|x||V| {r:.3e}")
     # dq_dp and loss_dq_dp (B, m_pad, k, missing in data, no_missing, g):
-    # B and m_pad ragged against the 8-warp rows and the 64/128/256-SNP
-    # tiles, k in {2, 7, 8, 16} (templates 4, 8, 16); each case masked and
-    # unmasked, with and without the loss.
-    # (600, 16): more rows than one launch of the k = 16 instance stages
-    # (512), so a second launch adds into dP and the loss.
+    # B ragged against the 16-row groups of the mma tiles and the 8 warps
+    # (1, 15, 17, 600), m_pad not a multiple of the 128-SNP tile, k in
+    # {2, 7, 8, 9, 16} (templates 4, 8, 16); each case masked and unmasked,
+    # with and without the loss, and K3 at g = 1 bit for bit against K4's
+    # dq and dP. (900, 16) and (1700, 8): more rows than one launch of the
+    # k = 16 and k = 8 instances stages (816, 1536), so a second launch adds
+    # into dP and the loss.
     cases = [(1, 2064, 2, True, False, 1.0), (9, 4112, 7, True, False, 2.5),
              (37, 6160, 8, False, True, 1.0), (96, 8208, 8, True, False, 2.5),
              (130, 4144, 16, False, False, 1.0), (37, 4112, 16, True, False,
                                                    2.5),
-             (600, 2064, 16, True, False, 2.5)]
+             (600, 2064, 16, True, False, 2.5), (1, 2080, 16, False, True,
+                                                 1.0),
+             (15, 2064, 9, True, False, 2.5), (17, 4144, 2, False, True, 1.0),
+             (15, 2080, 16, False, False, 2.5), (17, 2064, 9, False, True,
+                                                 1.0),
+             (600, 4112, 2, True, False, 1.0), (600, 2080, 9, False, True,
+                                                2.5),
+             (900, 2064, 16, True, False, 2.5), (1700, 2064, 8, False, True,
+                                                 1.0)]
     for B, m, k, missing, no_missing, g in cases:
         packed = torch.from_numpy(random_packed(rng, B, m, m, missing)).to(dev)
         q = torch.from_numpy(_q_rows(rng, B, k)).to(dev)
@@ -395,6 +475,13 @@ def phase_kernels(dev):
                       f"m_pad={m} k={k} missing={missing} "
                       f"no_missing={no_missing} g={g} masked={masked}: "
                       f"max|d| {e:.3e}")
+            k3 = dq_dp(packed, q, P, cm, rw, 1.0, masked, no_missing)
+            k4 = dq_dp(packed, q, P, cm, rw, 1.0, masked, no_missing, True)
+            if not (torch.equal(k3[0], k4[0]) and torch.equal(k3[1], k4[1])):
+                raise AssertionError(f"K3 at g = 1 differs from K4 (B={B}, "
+                                     f"k={k}, masked={masked})")
+        print(f"   B={B} k={k}: K3 at g = 1 bit-equal to K4's dq and dP, "
+              "masked and unmasked")
     # dv (B, m_pad, D, missing in data, no_missing); B = 300 at D = 32
     # stages dXp in two passes (256 rows each)
     cases = [(1, 2064, 4, True, False), (9, 4112, 5, True, False),
@@ -432,7 +519,10 @@ def phase_kernels(dev):
     for case in [(300, 1, 37, 4112, 7, 8, True, True),
                  (300, 1, 130, 2064, 16, 32, False, False),
                  (640, 16, 5, 6160, 8, 8, True, False),
-                 (640, 16, 38, 2064, 16, 5, False, True)]:
+                 (640, 16, 38, 2064, 16, 5, False, True),
+                 (300, 1, 15, 2080, 2, 4, False, True),
+                 (1000, 1, 17, 2064, 9, 8, True, True),
+                 (1000, 1, 900, 2064, 16, 8, True, False)]:
         e = check_indexed(dev, rng, *case)
         print(f"   indexed n_rows={case[0]} blk={case[1]} blocks={case[2]} "
               f"m_pad={case[3]} k={case[4]} D={case[5]} missing={case[6]} "
@@ -530,14 +620,11 @@ def phase_infer(dev):
     h2d_ms = cuda_ms(lambda: torch.from_numpy(packed[:BATCH]).to(dev), 5)
     pinned = torch.from_numpy(packed[:BATCH]).pin_memory()
     h2d_pinned_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), 5)
-    n_bytes = BATCH * W + m_pad * D_FULL * 4 + BATCH * D_FULL * 4
-    n_flop = 2 * BATCH * m_pad * D_FULL
-    t_bytes, t_flop = n_bytes / HBM_BYTES_PER_S, n_flop / FP32_FLOP_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_flop)
-    bound_by = "bytes" if t_bytes >= t_flop else "operations"
+    _, _, n_bytes, n_ops = work_shapes(BATCH, W, K_FULL)["xv"]
+    bound_ms, bound_by = bound(n_bytes, n_ops)
     print(f"   per batch of {BATCH}: xv kernel {ms:.4f} ms (bound "
           f"{bound_ms:.4f} ms by {bound_by}: {n_bytes / 1e6:.1f} MB, "
-          f"{n_flop / 1e9:.2f} GFLOP fp32; {100 * bound_ms / ms:.1f}% of it), "
+          f"{ops_text(n_ops)}; {100 * bound_ms / ms:.1f}% of it), "
           f"xv_plain {plain_ms:.3f} ms")
     print(f"   per batch: host->device copy {h2d_ms:.3f} ms pageable "
           f"({BATCH * W / h2d_ms / 1e6:.2f} GB/s), {h2d_pinned_ms:.3f} ms "
@@ -586,9 +673,16 @@ def phase_cli_infer():
 
 def bound(n_bytes, n_ops):
     """(ms, "bytes" or "operations"): the least time the card could take,
-    from the H100 SXM data sheet's HBM and fp32 rates."""
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S
+    the larger of the bytes over the HBM rate and the operations over the
+    peak rate of their type (``n_ops``: {type: count}; the times of the
+    types added), from the H100 SXM data sheet."""
+    t_b = n_bytes / HBM_BYTES_PER_S
+    t_o = sum(n / PEAK_OPS_PER_S[kind] for kind, n in n_ops.items())
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def ops_text(n_ops):
+    return ", ".join(f"{n / 1e9:.2f} G {kind}" for kind, n in n_ops.items())
 
 
 def assert_trajectory_close(got, want, lr, rtol=5e-3, atol=5e-4,
@@ -633,7 +727,7 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
     bound_ms, bound_by = bound(n_bytes, n_ops)
     print(f"   {name}: {ms:.4f} ms per call at B={TRAIN_BATCH} (bound "
           f"{bound_ms:.4f} ms by {bound_by}: {n_bytes / 1e6:.1f} MB, "
-          f"{n_ops / 1e9:.2f} GFLOP fp32; {100 * bound_ms / ms:.1f}% of it), "
+          f"{ops_text(n_ops)}; {100 * bound_ms / ms:.1f}% of it), "
           f"plain {plain_ms:.3f} ms, max|d| vs plain {err:.3e}, "
           f"{launches} launches on the training path")
     return {"name": name, "route": "cuda",
@@ -780,24 +874,38 @@ def phase_train(dev, packed):
 
 
 def work_shapes(B, W, k, D=D_FULL):
-    """{kernel: (source, TPU kernel line, bytes, operations)} of one call at
-    batch B, W packed bytes a row, k columns of q and P: each input read
-    once, each output written once; the operations counted as in the
-    source notes (an FMA as 2, a logarithm as 1)."""
+    """{kernel: (source, TPU kernel line, bytes, {type: operations})} of
+    one call at batch B, W packed bytes a row, k columns of q and P: each
+    input read once, each output written once; an FMA counts as 2
+    operations, a logarithm as 1. dq_dp computes raw = q P and dq = draw P^T
+    on the tensor cores in 3xTF32 (three TF32 products for each), dP =
+    q^T draw and the logarithms on the CUDA cores in fp32."""
     m_pad = 4 * W
     n_pk, n_p, n_q = B * W, k * m_pad * 4, B * k * 4
+    product = 2 * k * B * m_pad
     return {
         "xv": ("xv.cu", 99, n_pk + m_pad * D * 4 + B * D * 4,
-               2 * B * m_pad * D),
+               {"fp32": 2 * B * m_pad * D}),
         "dq_dp": ("dq_dp.cu", 168, n_pk + 2 * n_p + 2 * n_q,
-                  6 * k * B * m_pad),
+                  {"tf32": 2 * 3 * product, "fp32": product}),
         "loss_dq_dp": ("dq_dp.cu", 247, n_pk + 2 * n_p + 2 * n_q + 4,
-                       6 * k * B * m_pad + 2 * B * m_pad),
+                       {"tf32": 2 * 3 * product,
+                        "fp32": product + 2 * B * m_pad}),
         "dv": ("dv.cu", 319, n_pk + B * D * 4 + m_pad * D * 4,
-               2 * B * m_pad * D),
+               {"fp32": 2 * B * m_pad * D}),
         "bce_sum": ("bce_sum.cu", 136, n_pk + n_p + n_q + 4,
-                    2 * (k + 1) * B * m_pad),
+                    {"fp32": 2 * (k + 1) * B * m_pad}),
     }
+
+
+def heads_bound(B, W, ks, name):
+    """bound() of one launch of kernel ``name`` for each head k of ``ks``."""
+    parts = [work_shapes(B, W, k)[name] for k in ks]
+    n_ops = {}
+    for part in parts:
+        for kind, n in part[3].items():
+            n_ops[kind] = n_ops.get(kind, 0) + n
+    return bound(sum(part[2] for part in parts), n_ops)
 
 
 COUNTERS = {  # entry of the kernels line -> (wrapper, counter)
@@ -1005,17 +1113,21 @@ def phase_multihead(dev, packed, V):
         loss9 = cuda_ms(lambda: [dq_dp(xb, qs[hk], P_d[hk], cm, rw, 1.0,
                                        False, no_missing, True)
                                  for hk in qs], 10)
-    sum_k = sum(ks)
-    b9 = bound(len(ks) * B * W + sum_k * m_pad * 4,
-               2 * (sum_k + len(ks)) * B * m_pad)
-    b3 = bound(len(ks) * B * W + 2 * sum_k * m_pad * 4,
-               6 * sum_k * B * m_pad)
-    b4 = bound(len(ks) * B * W + 2 * sum_k * m_pad * 4,
-               6 * sum_k * B * m_pad + 2 * len(ks) * B * m_pad)
-    gb = bound(2 * B * W, 0)
+        per_head = {hk: (cuda_ms(lambda: dq_dp(xb, qs[hk], P_d[hk], cm, rw,
+                                               1.0, False, no_missing), 10),
+                         cuda_ms(lambda: dq_dp(xb, qs[hk], P_d[hk], cm, rw,
+                                               1.0, False, no_missing, True),
+                                 10))
+                    for hk in qs}
+    b9, b3, b4 = (heads_bound(B, W, ks, name)
+                  for name in ("bce_sum", "dq_dp", "loss_dq_dp"))
+    gb = bound(2 * B * W, {})
     print(f"   the gather the indexed form saves (index_select of {B} rows, "
           f"{B * W / 1e6:.1f} MB read and written): {gather_ms:.4f} ms "
           f"(bound {gb[0]:.4f} ms by bytes)")
+    print("   per head, B = 800, ms: " + ", ".join(
+        f"{hk} dq_dp {a:.4f} / loss_dq_dp {b:.4f}"
+        for hk, (a, b) in per_head.items()))
     print(f"   over the 9 heads (one launch each), B = {B}: bce_sum "
           f"{heads9:.4f} ms (bound {b9[0]:.4f} ms by {b9[1]}), dq_dp "
           f"{dq9:.4f} ms (bound {b3[0]:.4f}), loss_dq_dp {loss9:.4f} ms "
@@ -1147,7 +1259,128 @@ def phase_cli_train(dev):
     done(t)
 
 
-def main():
+def step_fn(model, xb, cm, rw, no_missing):
+    """One unlogged training step of the trainer (train/engine.py): the
+    fused loss, its backward (K2, K3 per head, K5), Adam and the P clamp."""
+    opt = torch.optim.Adam(model.parameters(), lr=2e-3, betas=(0.9, 0.95),
+                           eps=1e-8)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss, _ = fused_training_loss(model, xb, cm, rw, False, no_missing,
+                                      False)
+        loss.backward()
+        opt.step()
+        model.restrict_P()
+    return step
+
+
+def phase_ab(dev, parent_dir, parent_build):
+    """This checkout's kernels against another version of them (``--ab DIR``:
+    DIR a copy of another commit's ``csrc/``, built into DIR/build by
+    ``parent_build``, a future of _build.build, while the other phases
+    ran), in one process on one card, in the order parent, change, change,
+    parent. Each turn times, at B = 800 on full-width rows, K2 and K5 at
+    D = 8, K3, K4 and K6 per head of K = 2..10, and a warm unlogged training
+    step at K = 8 and at K = 2..10. The wrappers reach the parent's
+    libraries through _build.load; a kernel that DIR lacks runs the
+    checkout's in both. Writes chiprun_out/ab.json."""
+    t = phase(f"A/B: {parent_dir} (parent) vs this checkout's kernels")
+    built = parent_build.result()
+    for name, info in built.items():
+        n, r_min, r_max, spill = ptxas_summary(info["log"])
+        print(f"   parent {name}: ptxas: {n} functions, {r_min}-{r_max} "
+              f"registers, spill stores {spill} bytes at most")
+    parent_libs = {name: ctypes.CDLL(str(info["path"]))
+                   for name, info in built.items()}
+    change_load = _build.load
+    loads = {"change": change_load,
+             "parent": lambda name: parent_libs.get(name) or change_load(name)}
+
+    m_pad = -(-M_FULL // LANE) * LANE
+    rng = np.random.default_rng(SEED + 2)
+    B = TRAIN_BATCH
+    xb = torch.from_numpy(random_packed(rng, B, M_FULL, m_pad)).to(dev)
+    no_missing = not packed_has_missing(xb.cpu().numpy())
+    cm = (torch.arange(m_pad, device=dev) < M_FULL).to(torch.float32)
+    rw = torch.ones(B, device=dev)
+    dXp = torch.from_numpy(rng.standard_normal((B, D_FULL)).astype(
+        np.float32)).to(dev)
+    models = {}
+    for name, ks in (("K=8", [K_FULL]), ("K=2..10", KS_SWEEP)):
+        params = random_params(rng, M_FULL, m_pad, D_FULL, H_FULL, ks)
+        params["decoders"] = {
+            f"k{k}": np.where(np.arange(m_pad) < M_FULL, rng.uniform(
+                0.05, 0.95, (k, m_pad)), 0.0).astype(np.float32)
+            for k in ks}
+        models[name] = qp.params_from_numpy(params, ks, dev)
+    with torch.no_grad():
+        m9 = models["K=2..10"]
+        qs = m9.encode_from_xp(xv(xb, m9.V, no_missing))
+        heads = {hk: (qs[hk].contiguous(), m9.decoders[hk].detach())
+                 for hk in qs}
+    results = {}
+    try:
+        for turn, which in enumerate(("parent", "change", "change",
+                                      "parent")):
+            _build.load = loads[which]
+            row = {}
+            with torch.no_grad():
+                row["K2"] = cuda_ms(lambda: xv(xb, m9.V, no_missing), 10)
+                row["K5"] = cuda_ms(lambda: dv(xb, dXp, no_missing), 10)
+                for hk, (q, P) in heads.items():
+                    row[f"K3 {hk}"] = cuda_ms(lambda: dq_dp(
+                        xb, q, P, cm, rw, 1.0, False, no_missing), 10)
+                    row[f"K4 {hk}"] = cuda_ms(lambda: dq_dp(
+                        xb, q, P, cm, rw, 1.0, False, no_missing, True), 10)
+                    row[f"K6 {hk}"] = cuda_ms(lambda: bce_sum(
+                        xb, q, P, cm, rw, False, no_missing), 10)
+            for name, model in models.items():
+                row[f"step {name}"] = cuda_ms(
+                    step_fn(model, xb, cm, rw, no_missing), 10)
+            for kid in ("K3", "K4", "K6"):
+                row[f"{kid} sum of heads"] = sum(
+                    row[f"{kid} {hk}"] for hk in heads)
+            results[f"{turn + 1}:{which}"] = row
+            print(f"   {turn + 1}. {which}: " + ", ".join(
+                f"{n} {v:.4f}" for n, v in row.items()), flush=True)
+    finally:
+        _build.load = change_load
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "ab.json"), "w") as fb:
+        json.dump(results, fb, indent=1)
+    done(t)
+
+
+PHASES = ("env", "build", "kernels", "infer", "cli_infer", "train",
+          "multihead", "cli_train")
+
+
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run, in their fixed "
+                    "order (default: all): " + ", ".join(PHASES) + "; "
+                    "train needs infer, multihead needs train")
+    ap.add_argument("--ab", default=None, metavar="DIR",
+                    help="also time the kernels built from DIR (a copy of "
+                    "another commit's csrc/, e.g. the parent's unpacked "
+                    "with git archive into a git-ignored directory) "
+                    "against this checkout's, after the other phases")
+    args = ap.parse_args(argv)
+    args.phases = [p for p in args.phases.split(",") if p]
+    bad = sorted(set(args.phases) - set(PHASES))
+    if bad:
+        ap.error(f"unknown phases {bad}; choose from {list(PHASES)}")
+    for need, what in (("infer", "train"), ("train", "multihead")):
+        if what in args.phases and need not in args.phases:
+            ap.error(f"phase {what} needs phase {need}")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing to check.", file=sys.stderr)
@@ -1157,15 +1390,35 @@ def main():
         os.environ.pop(var, None)
     # fp32 products in full fp32 for the plain versions (the default, stated)
     torch.backends.cuda.matmul.allow_tf32 = False
+    run = set(args.phases)
     card = phase_env()
-    phase_build()
-    phase_kernels(dev)
-    packed = phase_infer(dev)
-    phase_cli_infer()
-    kernels, V = phase_train(dev, packed)
-    kernels += phase_multihead(dev, packed, V)
-    del packed
-    phase_cli_train(dev)
+    parent_build = None
+    if args.ab:  # nvcc on DIR's sources runs beside the phases
+        from concurrent.futures import ThreadPoolExecutor
+        pool = ThreadPoolExecutor(1)
+        parent_build = pool.submit(_build.build, None,
+                                   os.path.abspath(args.ab))
+        pool.shutdown(wait=False)
+    if "build" in run:
+        phase_build()
+    kernels = []
+    if "kernels" in run:
+        phase_kernels(dev)
+    if "infer" in run:
+        packed = phase_infer(dev)
+    if "cli_infer" in run:
+        phase_cli_infer()
+    if "train" in run:
+        k_train, V = phase_train(dev, packed)
+        kernels += k_train
+    if "multihead" in run:
+        kernels += phase_multihead(dev, packed, V)
+    if "infer" in run:
+        del packed
+    if "cli_train" in run:
+        phase_cli_train(dev)
+    if parent_build is not None:
+        phase_ab(dev, args.ab, parent_build)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,9 @@ plain C interface (no PyTorch headers, so a build takes seconds), loaded with
 and flags, so an edited source is rebuilt at its next first use and an
 unchanged one is loaded as it is. All missing libraries build in parallel,
 one ``nvcc`` each; ``build`` returns what the compiler reports (registers,
-shared memory, spills).
+shared memory, spills). ``build`` also takes another source directory (a
+copy of another version of ``csrc/``, to time it against this one), whose
+libraries go into its own ``build/``.
 """
 import ctypes
 import hashlib
@@ -18,7 +20,6 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -37,31 +38,33 @@ def _nvcc() -> str:
         "CUDA toolkit on the machine with the card.")
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, csrc: Path) -> Path:
     h = hashlib.sha256()
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for src in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return csrc / "build" / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=None) -> Dict[str, dict]:
-    """Compile every kernel source whose library is missing, in parallel.
+def build(names=None, csrc: Path = CSRC) -> Dict[str, dict]:
+    """Compile every kernel source of ``csrc`` (``names``, or all) whose
+    library is missing, in parallel.
 
     Returns {name: {"path", "seconds", "log"}}; "log" is nvcc's output and
     "seconds" 0.0 for a library that was already built. Raises if nvcc
     fails."""
-    names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    csrc = Path(csrc)
+    names = names or sorted(p.stem for p in csrc.glob("*.cu"))
+    (csrc / "build").mkdir(parents=True, exist_ok=True)
     out, procs = {}, {}
     for name in names:
-        path = _lib_path(name)
+        path = _lib_path(name, csrc)
         out[name] = {"path": path, "seconds": 0.0, "log": ""}
         if path.exists():
             continue
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, time.perf_counter())
@@ -70,7 +73,7 @@ def build(names=None) -> Dict[str, dict]:
         out[name]["seconds"] = time.perf_counter() - t0
         out[name]["log"] = log
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+            raise RuntimeError(f"nvcc failed on {csrc / name}.cu "
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, out[name]["path"])
     return out

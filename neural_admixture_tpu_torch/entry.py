@@ -5,10 +5,11 @@ The flag surface of the JAX package's CLI, with YAML config-file support
 ``train`` with one K (``--k``) or a K range (``--min_k``/``--max_k``, one
 head per K), unsupervised or supervised (``--pops_path``, one K), and
 ``infer``. Both run on the card by default (``--num_gpus 1``);
-``--num_gpus 0`` asks for the CPU. Every flag of the JAX package parses;
-those outside the ported slice (``--num_gpus > 1``, ``--mesh``, ``--cv``,
-``--init_restarts > 1``, checkpoints, ``--stream 1``, ``--profile_dir``)
-raise "not ported yet" with the ROADMAP.md item that ports them. The JAX
+``--num_gpus 0`` asks for the CPU, and ``--mesh 1x1`` is that one device.
+Every flag of the JAX package parses; those outside the ported slice
+(``--num_gpus > 1``, a larger ``--mesh``, ``--cv``, ``--init_restarts >
+1``, checkpoints, ``--stream 1``, ``--profile_dir``) raise "not ported yet"
+with the ROADMAP.md item that ports them. The JAX
 package's environment variables ``NA_TPU_INDEXED``, ``NA_TPU_SPLIT_LOSS``
 and ``NA_TPU_FORCE_MASKED`` choose the training program
 (train/engine.py).
@@ -16,6 +17,7 @@ and ``NA_TPU_FORCE_MASKED`` choose the training program
 import argparse
 import logging
 import os
+import re
 import sys
 import time
 from typing import List, Optional
@@ -160,7 +162,8 @@ def parse_train_args(argv: List[str]) -> argparse.Namespace:
                         help="Number of devices: 1 (default) = the CUDA "
                         "card, 0 = CPU. More than one is not ported yet.")
     parser.add_argument("--mesh", required=False, default=None, type=str,
-                        help="Device mesh as DATAxSNP; not ported yet.")
+                        help="Device mesh as DATAxSNP; only 1x1 (one "
+                        "device) is ported yet.")
     parser.add_argument("--sample_block", required=False, default=16,
                         type=int, help="Batch sampling granularity: draw "
                         "random runs of this many consecutive (pre-shuffled) "
@@ -217,7 +220,8 @@ def parse_infer_args(argv: List[str]) -> argparse.Namespace:
                         help="Number of devices: 1 (default) = the CUDA "
                         "card, 0 = CPU. More than one is not ported yet.")
     parser.add_argument("--mesh", required=False, default=None, type=str,
-                        help="Device mesh as DATAxSNP; not ported yet.")
+                        help="Device mesh as DATAxSNP; only 1x1 (one "
+                        "device) is ported yet.")
     parser.add_argument("--threads", required=False, default=1, type=int,
                         help="Number of threads to be used during execution.")
     _apply_yaml_defaults(parser, argv)
@@ -238,6 +242,9 @@ def _validate(mode: str, args: argparse.Namespace) -> None:
         raise ValueError("Number of devices must be >= 0.")
     if args.batch_size <= 0:
         raise ValueError("Batch size must be > 0.")
+    if args.mesh and not re.fullmatch(r"[1-9]\d*x[1-9]\d*", args.mesh):
+        raise ValueError(f"--mesh must look like '4x2' (data x snp), got "
+                         f"'{args.mesh}'.")
     if mode != "train":
         return
     for name in ("epochs", "learning_rate", "hidden_size", "n_components",

@@ -23,12 +23,22 @@ from .utils.logger import log, setup_logging
 _LANE = 2048
 
 
+def mesh_size(mesh) -> int:
+    """Devices of a ``--mesh`` 'DxS' (data x snp), 1 without one."""
+    if not mesh:
+        return 1
+    n_data, n_snp = (int(s) for s in mesh.lower().split("x"))
+    return n_data * n_snp
+
+
 def select_device(num_gpus: int, mesh=None,
                   what: str = "inference") -> torch.device:
-    """``--num_gpus 0`` is the CPU, 1 the card; no other choice is ported.
+    """``--num_gpus 0`` is the CPU, 1 the card; a ``--mesh`` of one device
+    (1x1) is the same single device, as in the JAX package. No other choice
+    is ported.
 
     Never falls back: asking for the card on a host without one raises."""
-    if mesh or num_gpus > 1:
+    if mesh_size(mesh) > 1 or num_gpus > 1:
         raise NotImplementedError(
             f"{what.capitalize()} over several devices (--num_gpus > 1 or "
             "--mesh) is not ported yet: ROADMAP.md Queue 1 item 12 "

@@ -31,8 +31,18 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
                                f"item {item}.")
 
 
+# --stream as the JAX package's train/run.py normalises it: YAML configs
+# bypass argparse's choices and may give ints or bools.
+STREAM_MAP = {"auto": None, None: None, "0": False, 0: False, False: False,
+              "1": True, 1: True, True: True}
+
+
 def check_ported(args) -> None:
-    """Raise on every option outside the ported slice."""
+    """Raise on every option outside the ported slice, and on a --stream
+    value outside auto/0/1 as the JAX package does."""
+    stream = getattr(args, "stream", "auto")
+    if stream not in STREAM_MAP:
+        raise ValueError(f"--stream must be auto, 0, or 1; got {stream!r}")
     if args.cv:
         raise _not_ported("--cv", "13 (CV, restarts and the bench)")
     if int(args.init_restarts or 1) > 1:
@@ -41,7 +51,7 @@ def check_ported(args) -> None:
     if args.checkpoint_every or args.resume:
         raise _not_ported("--checkpoint_every/--resume", "9 "
                           "(checkpoint/resume and preemption)")
-    if str(args.stream) in ("1", "True", "true"):
+    if STREAM_MAP[stream]:
         raise _not_ported("--stream 1 (host streaming)", "10 (host "
                           "streaming)")
     if args.profile_dir:

@@ -169,13 +169,21 @@ def _abs_bound(*sums):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,M,K", [(9, 4112, 7), (96, 8208, 8),
-                                   (37, 4144, 16), (600, 2064, 16)])
+                                   (37, 4144, 16), (600, 2064, 16),
+                                   (1, 2080, 2), (15, 2064, 9),
+                                   (17, 4144, 2), (600, 2080, 9),
+                                   (900, 2064, 16)])
 @pytest.mark.parametrize("masked", [True, False])
 @pytest.mark.parametrize("with_loss", [True, False])
+@pytest.mark.parametrize("missing", [True, False])
 def test_dq_dp_kernel_matches_plain_on_card(cuda_device, B, M, K, masked,
-                                            with_loss):
+                                            with_loss, missing):
+    """B ragged against the kernel's 16-row groups, M against its 128-SNP
+    tiles, every template (k <= 4, 8, 16) and, at B = 900 and k = 16, two
+    launches."""
     rng = np.random.default_rng(B)
-    packed = pack_2bit_rows(rng.integers(0, 4, size=(B, M)).astype(np.uint8))
+    packed = pack_2bit_rows(rng.integers(0, 4 if missing else 3,
+                                         size=(B, M)).astype(np.uint8))
     q = rng.dirichlet(np.ones(K), size=B).astype(np.float32)
     # raw inside (0.1, 0.9): no element near the clamp edges, where the
     # gradient amplifies the last bit of raw
@@ -183,7 +191,7 @@ def test_dq_dp_kernel_matches_plain_on_card(cuda_device, B, M, K, masked,
     cm = (rng.uniform(size=M) > 0.1).astype(np.float32)
     rw = (rng.uniform(size=B) > 0.2).astype(np.float32)
     args = [t.to(cuda_device) for t in _port(packed, q, P, cm, rw)]
-    got = dq_dp(*args, 2.5, masked, False, with_loss)
+    got = dq_dp(*args, 2.5, masked, not missing, with_loss)
     torch.cuda.synchronize()
     want = dq_dp_plain(*args, 2.5, masked, with_loss)
     x = unpack_dosage(args[0])
@@ -194,6 +202,25 @@ def test_dq_dp_kernel_matches_plain_on_card(cuda_device, B, M, K, masked,
     for a, b, bound in zip(got, want, bounds):
         if a is not None:
             assert bool(((a - b).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,K", [(15, 2064, 2), (17, 4144, 8),
+                                   (600, 2080, 9), (900, 2064, 16)])
+def test_dq_dp_at_g_1_equals_loss_dq_dp_bit_for_bit(cuda_device, B, M, K):
+    """K3 at g = 1 and K4 share their arithmetic: the split and merged
+    training programs rest on it (ops/fused_step.py PlaneBCE)."""
+    rng = np.random.default_rng(B + K)
+    packed = pack_2bit_rows(rng.integers(0, 4, size=(B, M)).astype(np.uint8))
+    q = rng.dirichlet(np.ones(K), size=B).astype(np.float32)
+    P = rng.uniform(-0.1, 1.1, size=(K, M)).astype(np.float32)
+    cm = (rng.uniform(size=M) > 0.1).astype(np.float32)
+    rw = (rng.uniform(size=B) > 0.2).astype(np.float32)
+    args = [t.to(cuda_device) for t in _port(packed, q, P, cm, rw)]
+    for masked in (True, False):
+        dq3, dP3, _ = dq_dp(*args, 1.0, masked)
+        dq4, dP4, _ = dq_dp(*args, 1.0, masked, with_loss=True)
+        assert torch.equal(dq3, dq4) and torch.equal(dP3, dP4)
 
 
 @pytest.mark.cuda

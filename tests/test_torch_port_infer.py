@@ -170,6 +170,20 @@ def test_unported_paths_raise(argv, match):
         tentry.main(argv)
 
 
+def test_cli_infer_mesh_1x1_is_one_device(tmp_path):
+    """--mesh 1x1 is one device, as in the JAX package (infer.py:130-132):
+    the same .Q as no mesh; '2x' fails the format check."""
+    _demo_model(tmp_path, "m", [3])
+    argv = _infer_argv(tmp_path, "m", "plain") + ["--num_gpus", "0"]
+    assert tentry.main(argv) == 0
+    argv[argv.index("--out_name") + 1] = "mesh"
+    assert tentry.main(argv + ["--mesh", "1x1"]) == 0
+    np.testing.assert_array_equal(np.loadtxt(tmp_path / "mesh.3.Q"),
+                                  np.loadtxt(tmp_path / "plain.3.Q"))
+    with pytest.raises(ValueError, match="--mesh must look like"):
+        tentry.main(argv + ["--mesh", "2x"])
+
+
 def test_unported_reader_raises(tmp_path):
     _demo_model(tmp_path, "m", [3])
     argv = _infer_argv(tmp_path, "m", "o") + ["--num_gpus", "0"]

@@ -405,6 +405,65 @@ def test_unported_train_options_raise(tmp_path, extra, match):
         tentry.main(argv + extra)
 
 
+class _PastTheStreamCheck(Exception):
+    pass
+
+
+@pytest.mark.parametrize("stream,verdict", [
+    (2, "invalid"), ("yes", "invalid"), (0, "resident"),
+    (False, "resident"), ("auto", "resident"), (None, "resident"),
+    (1, "streamed"), (True, "streamed"),
+])
+def test_stream_values_follow_the_jax_package(monkeypatch, tmp_path, stream,
+                                              verdict):
+    """A --stream value (as a YAML config may give it) gets the JAX
+    package's verdict: outside auto/0/1 a ValueError, 1 "not ported yet"
+    in the port (item 10), else the resident path."""
+    from neural_admixture_tpu.train import run as jrun
+
+    from neural_admixture_tpu_torch.train.run import check_ported
+
+    args = tentry.parse_train_args(
+        ["--data_path", DEMO_BED, "--save_dir", str(tmp_path), "--name", "m",
+         "--num_gpus", "0", "--k", "3"])
+    args.stream = stream
+
+    def stop(**kw):  # the JAX package's stream verdict is in kw["stream"]
+        raise _PastTheStreamCheck(kw["stream"])
+
+    monkeypatch.setattr(jrun, "TrainConfig", stop)
+    with pytest.raises((ValueError, _PastTheStreamCheck)) as jax_exc:
+        jrun.main_train(args, 0.0)
+    jax_verdict = ("invalid" if jax_exc.type is ValueError else
+                   "streamed" if jax_exc.value.args[0] else "resident")
+    assert jax_verdict == verdict
+    if verdict == "invalid":
+        with pytest.raises(ValueError, match="--stream must be auto, 0, or 1"):
+            check_ported(args)
+    elif verdict == "streamed":
+        with pytest.raises(NotImplementedError, match="item 10"):
+            check_ported(args)
+    else:
+        check_ported(args)
+
+
+def test_cli_train_mesh_1x1_is_one_device(tmp_path):
+    """--mesh 1x1 trains on the one device --num_gpus names, as the JAX
+    package does (train/run.py:45-54): the same .Q as no mesh; 2x1 is not
+    ported yet and '2x' fails the format check (entry.py:280-284)."""
+    argv = ["train", "--k", "3", "--data_path", DEMO_BED, "--save_dir",
+            str(tmp_path), "--epochs", "2", "--seed", "42", "--num_gpus",
+            "0", "--no_progress"]
+    assert tentry.main(argv + ["--name", "plain"]) == 0
+    assert tentry.main(argv + ["--name", "mesh", "--mesh", "1x1"]) == 0
+    np.testing.assert_array_equal(np.loadtxt(tmp_path / "mesh.3.Q"),
+                                  np.loadtxt(tmp_path / "plain.3.Q"))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tentry.main(argv + ["--name", "m", "--mesh", "2x1"])
+    with pytest.raises(ValueError, match="--mesh must look like"):
+        tentry.main(argv + ["--name", "m", "--mesh", "2x"])
+
+
 def test_epoch_plan_covers_every_row_once():
     for N, B, blk in [(4096, 800, 16), (105, 800, 16), (100, 40, 1),
                       (37, 10, 4)]:
