@@ -11,7 +11,8 @@ non-zero exit and no result line:
   2. build: compiles the kernels (nvcc, one process per source, in
      parallel), prints build seconds and ptxas info;
   3. kernel vs plain: xv, dq_dp, loss_dq_dp, dv and bce_sum against their
-     plain versions at small ragged shapes; the indexed form of each (K7:
+     plain versions at small ragged shapes (xv also on a V with a 1000-fold
+     spike in every 512-SNP chunk); the indexed form of each (K7:
      a block index into resident rows) against the plain version and bit
      for bit against the same kernel on the gathered batch; dq_dp at g = 1
      bit for bit against loss_dq_dp;
@@ -38,9 +39,9 @@ non-zero exit and no result line:
   A/B (only with ``--ab DIR``): the kernels of DIR, a copy of another
      commit's csrc/ with the same C interfaces (the parent's), built into
      DIR/build while the phases run, timed against the checkout's in the
-     order parent, change, change, parent: K2 and K5, K3, K4 and K6 per
-     head of K = 2..10, and a warm unlogged training step at K = 8 and
-     K = 2..10 (chiprun_out/ab.json);
+     order parent, change, change, parent: K2 (B = 800 and 1024) and K5,
+     K3, K4 and K6 per head of K = 2..10, a warm unlogged training step at
+     K = 8 and K = 2..10, and infer_q (ab.json, beside the ptxas logs);
   8. one JSON line with every kernel's numbers (those of the phases run);
   9. the last line: {"ok": true, "device": {...}}.
 
@@ -83,6 +84,7 @@ from neural_admixture_tpu_torch.ops.loss import clamped_bce_sum  # noqa: E402
 from neural_admixture_tpu_torch.ops.pack import (  # noqa: E402
     batch_rows, gather_batch, packed_has_missing)
 from neural_admixture_tpu_torch.ops.rsvd import rsvd  # noqa: E402
+from neural_admixture_tpu_torch.ops import xv as xv_ops  # noqa: E402
 from neural_admixture_tpu_torch.ops.xv import xv, xv_plain  # noqa: E402
 from neural_admixture_tpu_torch.train.engine import (  # noqa: E402
     NeuralAdmixtureTrainer, TrainConfig, block_geometry, epoch_plan)
@@ -92,9 +94,10 @@ from neural_admixture_tpu_torch.utils.seeding import generator  # noqa: E402
 
 SEED = 0
 # H100 SXM data sheet: the HBM3 rate, and the peak rate of each type of
-# operation: fp32 on the CUDA cores, TF32 on the tensor cores (dense).
+# operation: fp32 on the CUDA cores, TF32 and int8 on the tensor cores
+# (dense).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12}
+PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12, "int8": 1979e12}
 # Full width: bench.py's M, N, K and the CLI defaults for D, H and batch.
 N_FULL, M_FULL, K_FULL, D_FULL, H_FULL, BATCH = 4096, 1_000_000, 8, 8, 1024, 1024
 # Training at full width: the train CLI's batch and sample_block defaults
@@ -171,6 +174,17 @@ def random_packed(rng, n, m, m_pad, missing=True):
         packed[:, m // 4] &= np.uint8((1 << (2 * (m % 4))) - 1)
     packed[:, -(-m // 4):] = 0
     return packed
+
+
+def spike_v(rng, m, D):
+    """V (m, D) fp32 that the fixed point of the xv kernel finds hard: in
+    column 0 a single entry of every 512-SNP chunk is 1000 times the rest
+    (each chunk's scale is set by the spike)."""
+    V = rng.uniform(-1.0, 1.0, size=(m, D)).astype(np.float32)
+    for c0 in range(0, m, 512):
+        V[c0 + rng.integers(0, min(512, m - c0)), 0] = 1000.0 * rng.choice(
+            [-1.0, 1.0])
+    return V
 
 
 def check_xv(packed, V, no_missing, **ix):
@@ -352,14 +366,32 @@ def phase_env():
     return card
 
 
+def ptxas_functions(log):
+    """[(entry function, registers, spill stores in bytes)] from nvcc's
+    -Xptxas -v output, names as mangled."""
+    import re
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 def ptxas_summary(log):
     """(functions, min and max registers, largest spill stores in bytes)
     from nvcc's -Xptxas -v output."""
-    import re
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
-    return len(regs), min(regs, default=0), max(regs, default=0), \
-        max(spills, default=0)
+    fns = ptxas_functions(log)
+    regs = [r for _, r, _ in fns]
+    return len(fns), min(regs, default=0), max(regs, default=0), \
+        max((sp for _, _, sp in fns), default=0)
 
 
 def phase_build():
@@ -371,6 +403,10 @@ def phase_build():
         print(f"   {name}: {info['seconds']:.1f} s -> {info['path'].name}; "
               f"ptxas: {n} functions, {r_min}-{r_max} registers, spill "
               f"stores {spill} bytes at most")
+        if name == "xv":  # K2's instances, one line each
+            for fn, regs, sp in ptxas_functions(info["log"]):
+                print(f"     ptxas {fn}: {regs} registers, spill stores "
+                      f"{sp} bytes")
         with open(os.path.join(out_dir, f"ptxas_{name}.log"), "w") as fb:
             fb.write(info["log"])
     done(t)
@@ -423,20 +459,36 @@ def phase_kernels(dev):
     print(f"   dq_dp's branch-free division: bit-equal to '/' on 2^24 pairs "
           f"of its domain; {share:.2e} of them taken by '/' instead")
     rng = np.random.default_rng(SEED)
-    # xv (B, M, D, missing in data, no_missing flag): B not a multiple of
-    # the block's rows, M not a multiple of the 512-SNP chunk, D in {4, 8}
-    # and the other template widths, with and without code 3.
-    cases = [(37, 4000, 4, True, False), (37, 4000, 4, False, True),
-             (130, 16400, 8, True, False), (130, 16400, 8, False, True),
-             (130, 16400, 8, False, False), (65, 6160, 5, True, False),
-             (9, 8192, 16, True, False), (70, 8192, 32, False, True),
-             (1, 2048, 8, True, False)]
-    for B, M, D, missing, no_missing in cases:
+    # xv (B, M, D, missing in data, no_missing flag, spike): B not a
+    # multiple of the 16-row tile, M not a multiple of the 512-SNP chunk
+    # (and M / 4 not of 16 bytes: the kernel's word-by-word loads), D from
+    # 1 to 32 (n-tiles 1, 2, 4), with and without code 3; 1100 rows at
+    # D = 8 and 300 at D = 32 take two launches by rows; spike: V with one
+    # entry of every 512-SNP chunk 1000 times the rest (spike_v).
+    cases = [(37, 4000, 4, True, False, False),
+             (37, 4000, 4, False, True, False),
+             (130, 16400, 8, True, False, False),
+             (130, 16400, 8, False, True, False),
+             (130, 16400, 8, False, False, False),
+             (65, 6160, 5, True, False, False),
+             (9, 8192, 16, True, False, False),
+             (70, 8192, 32, False, True, False),
+             (1, 2048, 8, True, False, False),
+             (17, 6160, 1, True, False, False),
+             (800, 8192, 1, False, True, False),
+             (1100, 4112, 8, True, False, False),
+             (300, 2064, 32, True, False, False),
+             (130, 16400, 8, True, False, True),
+             (800, 8192, 8, False, True, True),
+             (130, 16384, 8, True, False, False),
+             (15, 4000, 1, True, False, True)]
+    for B, M, D, missing, no_missing, spike in cases:
         packed = torch.from_numpy(random_packed(rng, B, M, M, missing)).to(dev)
-        V = torch.from_numpy(rng.normal(size=(M, D)).astype(np.float32)).to(dev)
+        V = torch.from_numpy(spike_v(rng, M, D) if spike else rng.normal(
+            size=(M, D)).astype(np.float32)).to(dev)
         a, r = check_xv(packed, V, no_missing)
         print(f"   xv B={B} M={M} D={D} missing={missing} "
-              f"no_missing={no_missing}: max|d| {a:.3e}, "
+              f"no_missing={no_missing} spike={spike}: max|d| {a:.3e}, "
               f"max|d|/sum|x||V| {r:.3e}")
     # dq_dp and loss_dq_dp (B, m_pad, k, missing in data, no_missing, g):
     # B ragged against the 16-row groups of the mma tiles and the 8 warps
@@ -877,15 +929,17 @@ def work_shapes(B, W, k, D=D_FULL):
     """{kernel: (source, TPU kernel line, bytes, {type: operations})} of
     one call at batch B, W packed bytes a row, k columns of q and P: each
     input read once, each output written once; an FMA counts as 2
-    operations, a logarithm as 1. dq_dp computes raw = q P and dq = draw P^T
-    on the tensor cores in 3xTF32 (three TF32 products for each), dP =
-    q^T draw and the logarithms on the CUDA cores in fp32."""
+    operations, a logarithm as 1. xv computes its products on the int8
+    tensor cores, three for each (one for each int8 piece of V); dq_dp
+    computes raw = q P and dq = draw P^T on the tensor cores in 3xTF32
+    (three TF32 products for each), dP = q^T draw and the logarithms on
+    the CUDA cores in fp32."""
     m_pad = 4 * W
     n_pk, n_p, n_q = B * W, k * m_pad * 4, B * k * 4
     product = 2 * k * B * m_pad
     return {
         "xv": ("xv.cu", 99, n_pk + m_pad * D * 4 + B * D * 4,
-               {"fp32": 2 * B * m_pad * D}),
+               {"int8": 3 * 2 * B * m_pad * D}),
         "dq_dp": ("dq_dp.cu", 168, n_pk + 2 * n_p + 2 * n_q,
                   {"tf32": 2 * 3 * product, "fp32": product}),
         "loss_dq_dp": ("dq_dp.cu", 247, n_pk + 2 * n_p + 2 * n_q + 4,
@@ -1275,6 +1329,15 @@ def step_fn(model, xb, cm, rw, no_missing):
     return step
 
 
+def parent_xv_split(lib, B, W, D, sms):
+    """The split plan of the parent's xv wrapper (ops/xv.py before the int8
+    redesign), for its library in the A/B: blocks of
+    na_xv_rows_per_block(D) rows times SNP splits, about 4 blocks an SM in
+    all, no split without a chunk of its own."""
+    row_groups = -(-B // lib.na_xv_rows_per_block(D))
+    return max(1, min(lib.na_xv_chunks(W), -(-4 * sms // row_groups), 65535))
+
+
 def phase_ab(dev, parent_dir, parent_build):
     """This checkout's kernels against another version of them (``--ab DIR``:
     DIR a copy of another commit's ``csrc/``, built into DIR/build by
@@ -1282,7 +1345,9 @@ def phase_ab(dev, parent_dir, parent_build):
     ran), in one process on one card, in the order parent, change, change,
     parent. Each turn times, at B = 800 on full-width rows, K2 and K5 at
     D = 8, K3, K4 and K6 per head of K = 2..10, and a warm unlogged training
-    step at K = 8 and at K = 2..10. The wrappers reach the parent's
+    step at K = 8 and at K = 2..10; K2 also at B = 1024, the infer batch,
+    and infer_q over N = 4096 full-width rows (host clock, the mean of 3
+    runs after one). The wrappers reach the parent's
     libraries through _build.load; a kernel that DIR lacks runs the
     checkout's in both. Writes chiprun_out/ab.json."""
     t = phase(f"A/B: {parent_dir} (parent) vs this checkout's kernels")
@@ -1296,6 +1361,10 @@ def phase_ab(dev, parent_dir, parent_build):
     change_load = _build.load
     loads = {"change": change_load,
              "parent": lambda name: parent_libs.get(name) or change_load(name)}
+    change_split = xv_ops.split_count
+    splits = {"change": change_split,
+              "parent": parent_xv_split if "xv" in parent_libs
+              else change_split}
 
     m_pad = -(-M_FULL // LANE) * LANE
     rng = np.random.default_rng(SEED + 2)
@@ -1314,6 +1383,20 @@ def phase_ab(dev, parent_dir, parent_build):
                 0.05, 0.95, (k, m_pad)), 0.0).astype(np.float32)
             for k in ks}
         models[name] = qp.params_from_numpy(params, ks, dev)
+    xb_inf = torch.from_numpy(random_packed(rng, BATCH, M_FULL, m_pad)
+                              ).to(dev)
+    inf_missing = packed_has_missing(xb_inf.cpu().numpy())
+    rows_inf = random_packed(rng, N_FULL, M_FULL, m_pad)
+    params_inf = random_params(rng, M_FULL, m_pad, D_FULL, H_FULL, [K_FULL])
+
+    def infer_ms():
+        infer_q(params_inf, rows_inf, N_FULL, [K_FULL], BATCH, dev)
+        t_s = time.perf_counter()
+        for _ in range(3):
+            infer_q(params_inf, rows_inf, N_FULL, [K_FULL], BATCH, dev)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t_s) / 3
+
     with torch.no_grad():
         m9 = models["K=2..10"]
         qs = m9.encode_from_xp(xv(xb, m9.V, no_missing))
@@ -1324,9 +1407,12 @@ def phase_ab(dev, parent_dir, parent_build):
         for turn, which in enumerate(("parent", "change", "change",
                                       "parent")):
             _build.load = loads[which]
+            xv_ops.split_count = splits[which]
             row = {}
             with torch.no_grad():
                 row["K2"] = cuda_ms(lambda: xv(xb, m9.V, no_missing), 10)
+                row["K2 B=1024"] = cuda_ms(
+                    lambda: xv(xb_inf, m9.V, not inf_missing), 10)
                 row["K5"] = cuda_ms(lambda: dv(xb, dXp, no_missing), 10)
                 for hk, (q, P) in heads.items():
                     row[f"K3 {hk}"] = cuda_ms(lambda: dq_dp(
@@ -1338,6 +1424,7 @@ def phase_ab(dev, parent_dir, parent_build):
             for name, model in models.items():
                 row[f"step {name}"] = cuda_ms(
                     step_fn(model, xb, cm, rw, no_missing), 10)
+            row["infer_q"] = infer_ms()
             for kid in ("K3", "K4", "K6"):
                 row[f"{kid} sum of heads"] = sum(
                     row[f"{kid} {hk}"] for hk in heads)
@@ -1346,6 +1433,7 @@ def phase_ab(dev, parent_dir, parent_build):
                 f"{n} {v:.4f}" for n, v in row.items()), flush=True)
     finally:
         _build.load = change_load
+        xv_ops.split_count = change_split
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "ab.json"), "w") as fb:
         json.dump(results, fb, indent=1)

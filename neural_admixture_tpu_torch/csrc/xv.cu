@@ -1,4 +1,5 @@
-// xv: Xp = X @ V straight from 2-bit packed genotype rows, on Hopper.
+// xv: Xp = X @ V straight from 2-bit packed genotype rows, on Hopper's int8
+// tensor cores.
 //
 // Replaces the JAX package's Pallas kernel ops/fused_step.py:99 _xv_kernel
 // (through :598 _xv_call and :761 fused_infer_q): the projection of every
@@ -11,40 +12,58 @@
 //   Xp     (B, D) fp32,  Xp[b, d] = sum_m x(b, m) V[m, d],
 //          x = g/2 for the 2-bit code g, and 0 for code 3 (missing).
 //
-// Precision: fp32 throughout (no TF32, no bf16). The kernel multiplies the
-// raw code g in {0, 1, 2} and halves each partial sum once at the end, which
-// is exact in fp32 (halving commutes with rounding). The TPU kernel fed bf16
-// operands to its matrix unit; this one keeps full fp32 products.
+// Precision. The code g in {0, 1, 2} is an exact int8. V is cut per 512-SNP
+// chunk and column d into a power-of-two scale and three int8 pieces: e is
+// the smallest integer with amax 2^-e <= 127 2^16 (amax = max |V| over the
+// chunk's column; at least -100, and 0 for a zero column), v = rint(V 2^-e)
+// (an exact scaling and one rounding, |v - V 2^-e| <= 1/2, so at most
+// amax 2^-23 an entry, the size of fp32 rounding), and v = lo + 256 mid +
+// 65536 hi with each piece in [-128, 127]. Over one chunk each piece's sum
+// of products, |sum g piece| <= 2 128 512 < 2^18, is exact in the int32
+// accumulator of mma.sync.m16n8k32 .s8; at the end of the chunk the three
+// fold exactly in int64 to t = sum g v, which rounds once to fp32 and
+// scales by 2^e (exact) into the row's fp32 running sum, in chunk order.
+// The sum is halved once (exact), and the blocks' partials are summed in
+// block order. So the result is deterministic, the gathered and the indexed
+// forms agree bit for bit, and tests/test_torch_port_xv_mma.py reproduces
+// it on the CPU bit for bit. The TPU kernel fed V to its matrix unit in
+// bf16 (ops/fused.py:250 _dot_in), which keeps 8 bits.
 //
-// What bounds it on an H100 SXM: at the infer batch (B = 1024, m_pad =
-// 1,001,472, D = 8) it reads 256 MB of packed rows + 32 MB of V (~86 us at
-// 3.35 TB/s) and does 2*B*m_pad*D = 16.4 GFLOP (~245 us at the 67 TFLOP/s of
-// the fp32 CUDA cores). On the CUDA cores it is compute-bound, with the
-// decode (shift, mask, convert per genotype and row) on top of the D FMAs.
-// Design against that:
-//   * one decode of a genotype feeds all D FMAs, and each V value loaded
-//     from shared memory feeds R rows (R = 8 for D <= 8), so shared-memory
-//     traffic stays below the FMA rate;
-//   * the missing -> 0 mask is applied to a whole 16-SNP word with 5 integer
-//     ops, not per genotype (and compiled out when the host proved there is
-//     no code 3: NO_MISSING);
-//   * V is staged per 512-SNP chunk into shared memory in a field-major
-//     order ([field b][float4 q][lane]), so the 32 lanes of a warp, each on
-//     its own word, read 32 consecutive float4s: no bank conflicts. This
-//     reorder is internal; V stays in natural SNP order in device memory;
-//   * the grid splits M across blockIdx.y so that B/rows x n_split blocks
-//     fill the 132 SMs; a second tiny kernel sums the (n_split, B, D)
-//     partials in a fixed order. Results are deterministic, with no atomics;
+// What bounds it on an H100 SXM: at the training batch (B = 800, m_pad =
+// 1,001,472, D = 8) it must read 200.3 MB of packed rows and 32 MB of V,
+// 0.069 ms at 3.35 TB/s; its 3 x 12.8 G int8 products take 0.019 ms at the
+// 1,979 TOP/s of the int8 tensor cores. So it is bound by bytes, and the
+// design keeps the instructions per byte low and each byte read once:
+//   * a block owns a contiguous range of 512-SNP chunks and every row of
+//     the launch (about 2 blocks an SM; a second tiny kernel sums the
+//     blocks' (n_split, B, D) partials in a fixed order, with no atomics):
+//     V is read from device memory once, and cut into pieces once;
+//   * per chunk the block stages V's pieces in shared memory in B-fragment
+//     order (a lane's two registers of a k-step and piece adjacent: one
+//     conflict-free 64-bit load), from V values loaded into registers
+//     during the previous chunk; the scale needs the chunk's amax per
+//     column, one barrier, and a second makes the pieces visible;
+//   * warp w takes the 16-row tiles w, w + 8, ...; lane 4g + t loads words
+//     8t .. 8t + 7 of the chunk in rows g and g + 8 (two 16-byte loads a
+//     row; the 4 lanes of a row cover its 128 bytes), prefetched one tile
+//     ahead. The missing -> 0 mask costs 5 integer ops a word (compiled out
+//     under NO_MISSING). The k index of a k-step is permuted so that the
+//     slice (u >> 2j) & 0x03030303 of a word is an A register as it
+//     stands: its byte i is SNP 4i + j of the word. Step s takes slice
+//     s & 3 of the lane's words 2(s >> 2) (k 4t..4t+3) and 2(s >> 2) + 1
+//     (k 16+4t..), and V's pieces are staged under the same map;
+//   * running sums (rows x 8, 16 or 32 columns, fp32) live in shared
+//     memory, each row's owned by one warp: race-free and in chunk order.
+//     A batch with more rows than kMaxSums / columns goes in several
+//     launches by rows (rows are independent in xv);
 //   * K7, the indexed form (the JAX package's ops/fused_step.py:560-595):
 //     with blk_idx, batch row r is resident row blk_idx[r / blk] * blk +
 //     r % blk, read in place instead of from a gathered copy. The indexed
-//     instances (INDEXED) stage the word offsets of a block's 64 rows in
-//     shared memory once (batch_row, unpack.cuh); the gathered ones keep
-//     plain strides, which the table would slow by ~5%. Both run the same
+//     instances (INDEXED) stage each row's word offset in shared memory
+//     once a launch (batch_row, unpack.cuh). Both forms run the same
 //     arithmetic on the same rows, so they agree bit for bit.
-// Reaching the memory bound needs the tensor cores (g is exact in bf16, V
-// split into bf16 hi + lo parts, wgmma on the decoded tile); that is later
-// work.
+// No TMA, wgmma or warp specialisation: plain loads, prefetched into
+// registers.
 //
 // Offsets are 64-bit: B*W passes 2^31 at biobank N.
 
@@ -57,137 +76,271 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kChunkWords = 32;                // u32 words of a row per chunk
-constexpr int kChunkSnps = kChunkWords * 16;   // 512 SNPs
+constexpr int kChunkWords = 32;               // u32 words of a row per chunk
+constexpr int kChunkSnps = kChunkWords * 16;  // 512 SNPs
+constexpr int kSteps = kChunkSnps / 32;       // k-steps of 32 SNPs
+constexpr int kPieces = 3;                    // lo, mid, hi
+constexpr int kMaxSums = 8192;                // running sums a launch, floats
+constexpr int kMinExp = -100;                 // 2^e and 2^-e stay normal
+constexpr uint32_t kSlice = 0x03030303u;
 
-// Rows a thread carries (acc registers = R * DT <= 64).
-template <int DT>
-struct RowsPerThread {
-  static constexpr int value = DT <= 8 ? 8 : (DT == 16 ? 4 : 2);
+// Columns of the n-tiles (8 each) of a width D <= 32.
+template <int NT>
+struct Geom {
+  static constexpr int Dp = 8 * NT;
+  static constexpr int kRows = kMaxSums / Dp;  // rows of one launch
+  static constexpr int kPieceWords = kSteps * NT * kPieces * 32 * 2;
 };
 
-template <int DT, bool NO_MISSING, bool INDEXED>
-__global__ void __launch_bounds__(kThreads, 2)
-xv_partial_kernel(const uint32_t* __restrict__ packed,
-                  const float* __restrict__ V, float* __restrict__ partial,
-                  const int32_t* __restrict__ blk_idx, int blk,
-                  int64_t B, int64_t W4, int D, int64_t n_chunks,
-                  int n_split) {
-  constexpr int R = RowsPerThread<DT>::value;
-  constexpr int Q = DT / 4;
-  extern __shared__ float4 vs[];  // [16][Q][32] float4 = kChunkSnps*DT floats
-  __shared__ int64_t row_off[kWarps * R];  // INDEXED: each row's offset
+// Bytes of dynamic shared memory: pieces [kSteps][NT][kPieces][32] uint2,
+// running sums [rows16][Dp], amax [kWarps][Dp], scales [Dp], and (INDEXED)
+// row offsets [rows16] int64; every part a multiple of 8 bytes.
+template <int NT, bool INDEXED>
+size_t smem_bytes(int rows16) {
+  constexpr int Dp = Geom<NT>::Dp;
+  return sizeof(uint32_t) * Geom<NT>::kPieceWords +
+         sizeof(float) * ((size_t)rows16 * Dp + kWarps * Dp + Dp) +
+         (INDEXED ? sizeof(int64_t) * rows16 : 0);
+}
+
+// c += a b on the tensor cores, m16n8k32, int8 operands, int32 accumulator.
+__device__ __forceinline__ void mma_s8(int32_t (&c)[4], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint2 b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y));
+}
+
+// The smallest e with amax 2^-e <= 127 2^16 (amax = m 2^E, m in [0.5, 1):
+// E - 23 or E - 22), at least kMinExp; 0 for a zero column.
+__device__ __forceinline__ int scale_exp(float amax) {
+  if (!(amax > 0.f)) return 0;
+  int E;
+  const float m = frexpf(amax, &E);
+  const int e = m * 8388608.f <= 8323072.f ? E - 23 : E - 22;
+  return max(e, kMinExp);
+}
+
+__device__ __forceinline__ float exp2i(int e) {  // 2^e, e in [-126, 127]
+  return __int_as_float((127 + e) << 23);
+}
+
+// q = lo + 256 mid + 65536 hi, each piece in [-128, 127] for |q| <= 127 2^16.
+__device__ __forceinline__ void cut(int q, int& lo, int& mid, int& hi) {
+  lo = ((q + 128) & 255) - 128;
+  const int r1 = (q - lo) >> 8;
+  mid = ((r1 + 128) & 255) - 128;
+  hi = (r1 - mid) >> 8;
+}
+
+// The chunk's sum of g v of one output, from the pieces' accumulators:
+// exact in int64, rounded once to fp32.
+__device__ __forceinline__ float fold(int32_t hi, int32_t mid, int32_t lo) {
+  return __ll2float_rn((int64_t)hi * 65536 + (mid * 256 + lo));
+}
+
+template <int NT, bool NO_MISSING, bool INDEXED>
+__global__ void __launch_bounds__(kThreads, NT == 1 ? 2 : 1)
+xv_mma_kernel(const uint32_t* __restrict__ packed,
+              const float* __restrict__ V, float* __restrict__ partial,
+              const int32_t* __restrict__ blk_idx, int blk, int64_t B,
+              int64_t r0, int rows, int64_t W4, int D, int64_t n_chunks,
+              int n_split, int vec16) {
+  constexpr int Dp = Geom<NT>::Dp;
+  extern __shared__ uint4 smem[];
+  uint2* pieces = reinterpret_cast<uint2*>(smem);
+  const int rows16 = (rows + 15) & ~15;
+  float* sums = reinterpret_cast<float*>(pieces + Geom<NT>::kPieceWords / 2);
+  float* red = sums + rows16 * Dp;
+  float* scale = red + kWarps * Dp;
+  int64_t* row_off = reinterpret_cast<int64_t*>(scale + Dp);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int split = blockIdx.y;
-  const int64_t block_row0 = (int64_t)blockIdx.x * (kWarps * R);
-  const int64_t row0 = block_row0 + warp * R;
-  const int64_t left = B - row0;
-  const int n_rows = left < 0 ? 0 : (left < R ? (int)left : R);
-  if constexpr (INDEXED) {
-    for (int i = threadIdx.x; i < kWarps * R; i += kThreads)
-      row_off[i] = block_row0 + i < B
-                       ? batch_row(blk_idx, blk, block_row0 + i) * W4 : 0;
-    __syncthreads();
-  }
-  const uint32_t* rows = packed + row0 * W4;
-  const int64_t* offs = row_off + warp * R;
-  // Word w of this warp's row r.
-  auto word = [&](int r, int64_t w) {
-    return INDEXED ? packed + offs[r] + w : rows + r * W4 + w;
-  };
+  const int g = lane >> 2, t = lane & 3;
+  const int hb = warp & 1, sj = warp >> 1;  // staging: register, slice
+  const int split = blockIdx.x;
   const int64_t c0 = n_chunks * split / n_split;
   const int64_t c1 = n_chunks * (split + 1) / n_split;
+  const int n_tiles = rows16 >> 4;
   const int64_t m_pad = W4 * 16;
 
-  float acc[R][DT];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int d = 0; d < DT; ++d) acc[r][d] = 0.f;
-
-  uint32_t u_next[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int64_t w = c0 * kChunkWords + lane;
-    u_next[r] = (r < n_rows && c0 < c1 && w < W4) ? __ldg(word(r, w)) : 0u;
+  for (int i = threadIdx.x; i < rows16 * Dp; i += kThreads) sums[i] = 0.f;
+  if constexpr (INDEXED) {
+    for (int i = threadIdx.x; i < rows16; i += kThreads)
+      row_off[i] = i < rows ? batch_row(blk_idx, blk, r0 + i) * W4 : 0;
   }
+  __syncthreads();
 
-  for (int64_t c = c0; c < c1; ++c) {
-    uint32_t u[R];
+  // The lane's words 8t .. 8t + 7 of chunk c in rows g and g + 8 of tile
+  // tl (zeros past the launch's rows, the row's words, or the block's
+  // chunks): u[0..7] row g, u[8..15] row g + 8.
+  auto load_tile = [&](uint32_t (&u)[16], int tl, int64_t c) {
+    const int64_t w0 = c * kChunkWords + 8 * t;
+    const bool whole = vec16 && (c + 1) * kChunkWords <= W4;
 #pragma unroll
-    for (int r = 0; r < R; ++r) u[r] = u_next[r];
-
-    __syncthreads();  // every warp is done with the previous chunk's V
-    const int64_t s0 = c * kChunkSnps;
-    for (int i = threadIdx.x; i < kChunkSnps * Q; i += kThreads) {
-      const int l = i & 31;
-      const int bq = i >> 5;
-      const int q = bq % Q;
-      const int b = bq / Q;
-      const int64_t s = s0 + l * 16 + b;
-      float e[4];
+    for (int h = 0; h < 2; ++h) {
+      const int row = tl * 16 + g + 8 * h;
+      if (c < c1 && row < rows) {
+        const uint32_t* p =
+            (INDEXED ? packed + row_off[row] : packed + (r0 + row) * W4) + w0;
+        if (whole) {
+          const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+          const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+          u[8 * h + 0] = a.x; u[8 * h + 1] = a.y;
+          u[8 * h + 2] = a.z; u[8 * h + 3] = a.w;
+          u[8 * h + 4] = b.x; u[8 * h + 5] = b.y;
+          u[8 * h + 6] = b.z; u[8 * h + 7] = b.w;
+        } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = q * 4 + j;
-        e[j] = (s < m_pad && d < D) ? __ldg(V + s * D + d) : 0.f;
+          for (int k = 0; k < 8; ++k)
+            u[8 * h + k] = w0 + k < W4 ? __ldg(p + k) : 0u;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) u[8 * h + k] = 0u;
       }
-      vs[i] = make_float4(e[0], e[1], e[2], e[3]);
     }
-    __syncthreads();
+  };
 
-    // Prefetch the next chunk's words while this one computes.
+  // Staging: thread (lane 4g + t, warp 2 sj + hb) takes, for k = 0..3 and
+  // each n-tile nt, the SNPs 16 (8t + 2k + hb) + 4i + sj (i = 0..3) of
+  // column 8 nt + g: register hb of lane 4g + t at k-step 4k + sj, byte i.
+  float vv[4][NT][4];
+  auto load_v = [&](int64_t c) {
+    const int64_t s0 = c * kChunkSnps + 16 * (8 * t + hb) + sj;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int64_t w = (c + 1) * kChunkWords + lane;
-      u_next[r] = (r < n_rows && c + 1 < c1 && w < W4) ? __ldg(word(r, w))
-                                                        : 0u;
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int64_t s = s0 + 32 * k + 4 * i;
+          const int col = 8 * nt + g;
+          vv[k][nt][i] = c < c1 && s < m_pad && col < D
+                             ? __ldg(V + s * D + col) : 0.f;
+        }
+  };
+
+  // amax per column over the chunk (the thread's values, the 4 lanes of a
+  // column, the 8 warps), then the pieces into shared memory.
+  auto stage = [&]() {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float m = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) m = fmaxf(m, fabsf(vv[k][nt][i]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      if (t == 0) red[warp * Dp + 8 * nt + g] = m;
     }
+    __syncthreads();  // every warp's amax, and every warp done with the
+                      // previous chunk's pieces
+    uint32_t* pw = reinterpret_cast<uint32_t*>(pieces);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = 8 * nt + g;
+      float amax = red[col];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) amax = fmaxf(amax, red[w * Dp + col]);
+      const int e = scale_exp(amax);
+      if (warp == 0 && t == 0) scale[col] = exp2i(e);
+      const float inv = exp2i(-e);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        uint32_t w[kPieces] = {0u, 0u, 0u};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          int lo, mid, hi;
+          cut(__float2int_rn(vv[k][nt][i] * inv), lo, mid, hi);
+          w[0] |= (uint32_t)(lo & 0xff) << (8 * i);
+          w[1] |= (uint32_t)(mid & 0xff) << (8 * i);
+          w[2] |= (uint32_t)(hi & 0xff) << (8 * i);
+        }
+        const int s = 4 * k + sj;
+#pragma unroll
+        for (int p = 0; p < kPieces; ++p)
+          pw[(((s * NT + nt) * kPieces + p) * 32 + lane) * 2 + hb] = w[p];
+      }
+    }
+  };
+
+  // One tile's 16 k-steps x 3 pieces x NT n-tiles of mma over the chunk,
+  // folded into the running sums of rows tl*16 + g and + 8, columns
+  // 8 nt + 2t, + 1.
+  auto compute = [&](uint32_t (&u)[16], int tl, const float (&sc)[NT][2]) {
     if (!NO_MISSING) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) u[r] = unpack_word(u[r]);
+      for (int k = 0; k < 16; ++k) u[k] = unpack_word(u[k]);
     }
-
+    int32_t acc[NT][kPieces][4];
 #pragma unroll
-    for (int b = 0; b < 16; ++b) {
-      float4 v[Q];
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int q = 0; q < Q; ++q) v[q] = vs[(b * Q + q) * 32 + lane];
+      for (int p = 0; p < kPieces; ++p)
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float x = (float)((u[r] >> (2 * b)) & 3u);
+        for (int r = 0; r < 4; ++r) acc[nt][p][r] = 0;
+    const uint2* pb = pieces + lane;
 #pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          acc[r][4 * q + 0] = fmaf(x, v[q].x, acc[r][4 * q + 0]);
-          acc[r][4 * q + 1] = fmaf(x, v[q].y, acc[r][4 * q + 1]);
-          acc[r][4 * q + 2] = fmaf(x, v[q].z, acc[r][4 * q + 2]);
-          acc[r][4 * q + 3] = fmaf(x, v[q].w, acc[r][4 * q + 3]);
-        }
+    for (int s = 0; s < kSteps; ++s) {
+      const int wl = 2 * (s >> 2), j = 2 * (s & 3);
+      const uint32_t a0 = (u[wl] >> j) & kSlice;      // row g, k 4t..
+      const uint32_t a1 = (u[8 + wl] >> j) & kSlice;  // row g + 8
+      const uint32_t a2 = (u[wl + 1] >> j) & kSlice;  // row g, k 16+4t..
+      const uint32_t a3 = (u[9 + wl] >> j) & kSlice;  // row g + 8
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int p = 0; p < kPieces; ++p)
+          mma_s8(acc[nt][p], a0, a1, a2, a3,
+                 pb[((s * NT + nt) * kPieces + p) * 32]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2* dst = reinterpret_cast<float2*>(
+            sums + (tl * 16 + g + 8 * h) * Dp + 8 * nt + 2 * t);
+        float2 v = *dst;
+        v.x += __fmul_rn(fold(acc[nt][2][2 * h], acc[nt][1][2 * h],
+                              acc[nt][0][2 * h]), sc[nt][0]);
+        v.y += __fmul_rn(fold(acc[nt][2][2 * h + 1], acc[nt][1][2 * h + 1],
+                              acc[nt][0][2 * h + 1]), sc[nt][1]);
+        *dst = v;
       }
+  };
+
+  uint32_t nxt[16];
+  load_v(c0);
+  load_tile(nxt, warp, c0);
+  for (int64_t c = c0; c < c1; ++c) {
+    stage();
+    load_v(c + 1);  // lands while this chunk computes
+    __syncthreads();  // the pieces and scales of chunk c
+    float sc[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      sc[nt][0] = scale[8 * nt + 2 * t];
+      sc[nt][1] = scale[8 * nt + 2 * t + 1];
+    }
+    for (int tl = warp; tl < n_tiles; tl += kWarps) {
+      uint32_t u[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) u[k] = nxt[k];
+      // prefetch: the warp's next tile, or its first of the next chunk
+      const bool wrap = tl + kWarps >= n_tiles;
+      load_tile(nxt, wrap ? warp : tl + kWarps, wrap ? c + 1 : c);
+      compute(u, tl, sc);
     }
   }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      float s = acc[r][d];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      acc[r][d] = s;
-    }
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < n_rows) {
-        float* dst = partial + ((int64_t)split * B + row0 + r) * D;
-#pragma unroll
-        for (int d = 0; d < DT; ++d)
-          if (d < D) dst[d] = 0.5f * acc[r][d];
-      }
-    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    partial[((int64_t)split * B + r0 + r) * D + d] = 0.5f * sums[r * Dp + d];
   }
 }
 
@@ -202,37 +355,42 @@ __global__ void xv_reduce_kernel(const float* __restrict__ partial,
   out[i] = s;
 }
 
-template <int DT, bool NO_MISSING, bool INDEXED>
+template <int NT, bool NO_MISSING, bool INDEXED>
 cudaError_t launch(const uint32_t* packed, const float* V, float* partial,
                    float* out, const int32_t* blk_idx, int blk, int64_t B,
                    int64_t W4, int D, int n_split, cudaStream_t stream) {
-  const size_t smem = (size_t)kChunkSnps * DT * sizeof(float);
-  auto kernel = xv_partial_kernel<DT, NO_MISSING, INDEXED>;
+  constexpr int kRows = Geom<NT>::kRows;
+  auto kernel = xv_mma_kernel<NT, NO_MISSING, INDEXED>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<NT, INDEXED>(kRows));
   if (err != cudaSuccess) return err;
-  const int rows_per_block = kWarps * RowsPerThread<DT>::value;
   const int64_t n_chunks = (W4 + kChunkWords - 1) / kChunkWords;
-  dim3 grid((unsigned)((B + rows_per_block - 1) / rows_per_block),
-            (unsigned)n_split);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      packed, V, partial, blk_idx, blk, B, W4, D, n_chunks, n_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const int vec16 =
+      W4 % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+  for (int64_t r0 = 0; r0 < B; r0 += kRows) {
+    const int rows = (int)(B - r0 < kRows ? B - r0 : kRows);
+    kernel<<<(unsigned)n_split, kThreads,
+             smem_bytes<NT, INDEXED>((rows + 15) & ~15), stream>>>(
+        packed, V, partial, blk_idx, blk, B, r0, rows, W4, D, n_chunks,
+        n_split, vec16);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   const int64_t n = B * D;
   xv_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       partial, out, n, n_split);
   return cudaGetLastError();
 }
 
-template <int DT>
+template <int NT>
 cudaError_t dispatch_missing(const uint32_t* packed, const float* V,
                              float* partial, float* out,
                              const int32_t* blk_idx, int blk, int64_t B,
                              int64_t W4, int D, int n_split, int no_missing,
                              cudaStream_t stream) {
 #define NA_XV_LAUNCH(N, I) \
-  launch<DT, N, I>(packed, V, partial, out, blk_idx, blk, B, W4, D, n_split, \
+  launch<NT, N, I>(packed, V, partial, out, blk_idx, blk, B, W4, D, n_split, \
                    stream)
   switch ((no_missing ? 2 : 0) | (blk_idx != nullptr ? 1 : 0)) {
     case 0: return NA_XV_LAUNCH(false, false);
@@ -247,12 +405,12 @@ cudaError_t dispatch_missing(const uint32_t* packed, const float* V,
 
 extern "C" {
 
-// Rows of the batch one block covers, for the caller's split plan.
+// Rows of the batch one launch covers (its running sums fill kMaxSums
+// floats); a larger batch takes several launches.
 int na_xv_rows_per_block(int D) {
-  if (D <= 4) return kWarps * RowsPerThread<4>::value;
-  if (D <= 8) return kWarps * RowsPerThread<8>::value;
-  if (D <= 16) return kWarps * RowsPerThread<16>::value;
-  return kWarps * RowsPerThread<32>::value;
+  if (D <= 8) return Geom<1>::kRows;
+  if (D <= 16) return Geom<2>::kRows;
+  return Geom<4>::kRows;
 }
 
 // SNP chunks of 512 a row holds: the most splits that get work.
@@ -264,8 +422,8 @@ long long na_xv_chunks(long long W) {
 // packed: (rows, W) uint8, W % 4 == 0, 4-byte aligned: the batch itself
 // (blk_idx null, rows = B) or the resident rows that the (B / blk,) int32
 // blk_idx indexes (K7); V: (4W, D) fp32; partial: (n_split, B, D) fp32
-// scratch; out: (B, D) fp32. Returns the cudaError_t of the launches
-// (0 = cudaSuccess). 1 <= D <= 32.
+// scratch, n_split <= na_xv_chunks(W); out: (B, D) fp32. Returns the
+// cudaError_t of the launches (0 = cudaSuccess). 1 <= D <= 32.
 int na_xv(const void* packed, const void* V, void* partial, void* out,
           long long B, long long W, int D, int n_split, int no_missing,
           const void* blk_idx, int blk, void* stream) {
@@ -277,19 +435,17 @@ int na_xv(const void* packed, const void* V, void* partial, void* out,
   const int64_t W4 = W / 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bi != nullptr && (blk < 1 || B % blk)) return (int)cudaErrorInvalidValue;
-  if (D < 1) return (int)cudaErrorInvalidValue;
-  if (D <= 4)
-    return dispatch_missing<4>(p, v, part, o, bi, blk, B, W4, D, n_split,
-                               no_missing, s);
+  if (D < 1 || n_split < 1 || n_split > na_xv_chunks(W))
+    return (int)cudaErrorInvalidValue;
   if (D <= 8)
-    return dispatch_missing<8>(p, v, part, o, bi, blk, B, W4, D, n_split,
+    return dispatch_missing<1>(p, v, part, o, bi, blk, B, W4, D, n_split,
                                no_missing, s);
   if (D <= 16)
-    return dispatch_missing<16>(p, v, part, o, bi, blk, B, W4, D, n_split,
-                                no_missing, s);
+    return dispatch_missing<2>(p, v, part, o, bi, blk, B, W4, D, n_split,
+                               no_missing, s);
   if (D <= 32)
-    return dispatch_missing<32>(p, v, part, o, bi, blk, B, W4, D, n_split,
-                                no_missing, s);
+    return dispatch_missing<4>(p, v, part, o, bi, blk, B, W4, D, n_split,
+                               no_missing, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,6 +18,9 @@ from .fused import unpack_dosage
 from .pack import batch_size, gather_batch
 
 MAX_D = 32
+# Blocks of 256 threads an SM that the kernel's D <= 8 instances fit
+# (__launch_bounds__ in csrc/xv.cu; ptxas gives them 108-110 registers).
+BLOCKS_PER_SM = 2
 
 
 def xv_plain(packed: torch.Tensor, V: torch.Tensor, chunk_snps: int = 65536,
@@ -47,6 +50,14 @@ def _lib():
     lib.na_xv_chunks.argtypes = [ll]
     lib.na_xv_chunks.restype = ll
     return lib
+
+
+def split_count(lib, B: int, W: int, D: int, sms: int) -> int:
+    """Blocks of a launch of the kernel: each owns a range of 512-SNP
+    chunks and every row of the launch (``na_xv_rows_per_block(D)`` rows;
+    a larger batch takes several launches). About BLOCKS_PER_SM blocks an
+    SM, but no split without a chunk of its own."""
+    return max(1, min(lib.na_xv_chunks(W), BLOCKS_PER_SM * sms))
 
 
 def _check(packed: torch.Tensor, V: torch.Tensor) -> None:
@@ -95,12 +106,8 @@ def xv(packed: torch.Tensor, V: torch.Tensor, no_missing: bool = False,
     if B == 0 or W == 0:
         return out.zero_()
     lib = _lib()
-    dev = torch.cuda.get_device_properties(packed.device)
-    row_groups = -(-B // lib.na_xv_rows_per_block(D))
-    # ~4 blocks per SM in all, but no split without a chunk of its own.
-    n_split = max(1, min(lib.na_xv_chunks(W),
-                         -(-4 * dev.multi_processor_count // row_groups),
-                         65535))
+    n_split = split_count(lib, B, W, D, torch.cuda.get_device_properties(
+        packed.device).multi_processor_count)
     partial = torch.empty(n_split, B, D, dtype=torch.float32,
                           device=V.device)
     with torch.cuda.device(packed.device):

@@ -103,13 +103,30 @@ def test_xv_rejects_bad_inputs(bad):
         xv(packed, V)
 
 
+def _spike(V, rng):
+    """Column 0 of V with one entry of every 512-SNP chunk 1000 times the
+    largest of the rest: the chunk's scale in the kernel is the spike's."""
+    V[:, 0] = rng.uniform(-1.0, 1.0, size=V.shape[0]) * 0.05
+    for c0 in range(0, V.shape[0], 512):
+        V[c0 + rng.integers(0, min(512, V.shape[0] - c0)), 0] = 50.0
+    return V
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,M,D", [(37, 4000, 4), (130, 16400, 8),
-                                   (9, 8192, 32)])
+@pytest.mark.parametrize("B,M,D,spike", [
+    (37, 4000, 4, False), (130, 16400, 8, False), (9, 8192, 32, False),
+    (17, 6160, 1, False), (800, 8192, 1, False), (300, 2064, 32, False),
+    (130, 16384, 8, True), (15, 4000, 1, True), (33, 6160, 32, True)])
 @pytest.mark.parametrize("missing", [True, False])
-def test_xv_kernel_matches_plain_on_card(cuda_device, missing, B, M, D):
-    """Kernel vs plain on the card: |d| <= 1e-5 * sum|x||V| + 1e-6."""
+def test_xv_kernel_matches_plain_on_card(cuda_device, missing, B, M, D,
+                                         spike):
+    """Kernel vs plain on the card: |d| <= 1e-5 * sum|x||V| + 1e-6, at D
+    from 1 to 32 (300 rows at D = 32 take two launches by rows), and with
+    ``spike`` on V whose column 0 holds a 1000-fold spike in every 512-SNP
+    chunk."""
     G, packed, V = _case(3, B, M, D, missing)
+    if spike:
+        V = _spike(V, np.random.default_rng(5))
     p = torch.from_numpy(packed).to(cuda_device)
     v = torch.from_numpy(V).to(cuda_device)
     before = xv.launches
