@@ -12,7 +12,9 @@ non-zero exit and no result line:
      parallel), prints build seconds and ptxas info;
   3. kernel vs plain: xv, dq_dp, loss_dq_dp, dv and bce_sum against their
      plain versions at small ragged shapes (xv also on a V with a 1000-fold
-     spike in every 512-SNP chunk); the indexed form of each (K7:
+     spike in every 512-SNP chunk, dv on a dXp with a 1000-fold spike in
+     every 256-row chunk on a row of mostly 0 codes, and on a batch that
+     takes two launches by rows); the indexed form of each (K7:
      a block index into resident rows) against the plain version and bit
      for bit against the same kernel on the gathered batch; dq_dp at g = 1
      bit for bit against loss_dq_dp;
@@ -39,8 +41,9 @@ non-zero exit and no result line:
   A/B (only with ``--ab DIR``): the kernels of DIR, a copy of another
      commit's csrc/ with the same C interfaces (the parent's), built into
      DIR/build while the phases run, timed against the checkout's in the
-     order parent, change, change, parent: K2 (B = 800 and 1024) and K5,
-     K3, K4 and K6 per head of K = 2..10, a warm unlogged training step at
+     order parent, change, change, parent: K2 (B = 800 and 1024), K5
+     gathered and indexed at B = 800 and at the remainder B = 96, K3, K4
+     and K6 per head of K = 2..10, a warm unlogged training step at
      K = 8 and K = 2..10, and infer_q (ab.json, beside the ptxas logs);
   8. one JSON line with every kernel's numbers (those of the phases run);
   9. the last line: {"ok": true, "device": {...}}.
@@ -73,6 +76,7 @@ from neural_admixture_tpu_torch.models.qp import params_from_numpy  # noqa: E402
 from neural_admixture_tpu_torch.ops.bce_sum import (  # noqa: E402
     bce_sum, bce_sum_plain)
 from neural_admixture_tpu_torch.ops.dq_dp import dq_dp, dq_dp_plain  # noqa: E402
+from neural_admixture_tpu_torch.ops import dv as dv_ops  # noqa: E402
 from neural_admixture_tpu_torch.ops.dv import dv, dv_plain  # noqa: E402
 from neural_admixture_tpu_torch.ops.fused import (  # noqa: E402
     draw_tile, unpack_dosage)
@@ -84,7 +88,6 @@ from neural_admixture_tpu_torch.ops.loss import clamped_bce_sum  # noqa: E402
 from neural_admixture_tpu_torch.ops.pack import (  # noqa: E402
     batch_rows, gather_batch, packed_has_missing)
 from neural_admixture_tpu_torch.ops.rsvd import rsvd  # noqa: E402
-from neural_admixture_tpu_torch.ops import xv as xv_ops  # noqa: E402
 from neural_admixture_tpu_torch.ops.xv import xv, xv_plain  # noqa: E402
 from neural_admixture_tpu_torch.train.engine import (  # noqa: E402
     NeuralAdmixtureTrainer, TrainConfig, block_geometry, epoch_plan)
@@ -187,6 +190,24 @@ def spike_v(rng, m, D):
     return V
 
 
+def spike_dv_case(rng, B, m, D, missing, chunk=256):
+    """Packed rows (B, m/4) and dXp (B, D) that the fixed point of the dv
+    kernel finds hard: in column 0 of dXp one row of every ``chunk`` rows
+    (the kernel's scale chunk, csrc/dv.cu kChunkRows) is 1000 times the
+    rest, and that row's codes are 0 at 95% of the SNPs, so that most
+    outputs sum only the small rows, which the chunk's scale cuts
+    coarsest."""
+    packed = random_packed(rng, B, m, m, missing)
+    dXp = rng.normal(size=(B, D)).astype(np.float32)
+    dXp[:, 0] = rng.uniform(-1.0, 1.0, size=B)
+    for c0 in range(0, B, chunk):
+        r = c0 + rng.integers(0, min(chunk, B - c0))
+        dXp[r, 0] = 1000.0 * rng.choice([-1.0, 1.0])
+        codes = np.where(rng.uniform(size=m) < 0.05, 2, 0).reshape(-1, 4)
+        packed[r] = (codes << (2 * np.arange(4))).sum(1).astype(np.uint8)
+    return packed, dXp
+
+
 def check_xv(packed, V, no_missing, **ix):
     """Kernel vs plain on the card. Tolerance: fp32 sums in another order,
     |d| <= 1e-5 * sum_m |x||V| + 1e-6 per element. ``ix``: the block index
@@ -276,17 +297,19 @@ def check_dq_dp(packed, q, P, col_mask, row_w, g, masked, no_missing,
 
 
 def check_dv(packed, dXp, no_missing, **ix):
-    """Kernel vs plain on the card: |d| <= 1e-5 * sum_b |x||dXp| + 1e-6."""
+    """Kernel vs plain on the card: |d| <= 1e-5 * sum_b |x||dXp| + 1e-6.
+    Returns max |d| and max |d| / sum_b |x||dXp|."""
     got = dv(packed, dXp, no_missing, **ix)
     torch.cuda.synchronize()
     want = dv_plain(packed, dXp, **ix)
+    scale = dv_plain(packed, dXp.abs(), **ix)
     err = (got - want).abs()
-    bound = 1e-5 * dv_plain(packed, dXp.abs(), **ix) + 1e-6
+    bound = 1e-5 * scale + 1e-6
     if not bool((err <= bound).all()):
         raise AssertionError(
             f"dv disagrees with dv_plain: max |d| {err.max().item():.3e}, "
             f"worst |d|/bound {(err / bound).max().item():.3f}")
-    return err.max().item()
+    return err.max().item(), (err / (scale + 1e-30)).max().item()
 
 
 def check_bce_sum(packed, q, P, col_mask, row_w, masked, no_missing, **ix):
@@ -326,7 +349,7 @@ def check_indexed(dev, rng, n_rows, blk, nbk, m, k, D, missing, masked):
     V = torch.from_numpy(rng.normal(size=(m, D)).astype(np.float32)).to(dev)
     dXp = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)).to(dev)
     worst = max(check_xv(resident, V, no_missing, **ix)[0],
-                check_dv(resident, dXp, no_missing, **ix),
+                check_dv(resident, dXp, no_missing, **ix)[0],
                 check_dq_dp(resident, q, P, cm, rw, 2.5, masked, no_missing,
                             False, **ix),
                 check_dq_dp(resident, q, P, cm, rw, 1.0, masked, no_missing,
@@ -403,7 +426,7 @@ def phase_build():
         print(f"   {name}: {info['seconds']:.1f} s -> {info['path'].name}; "
               f"ptxas: {n} functions, {r_min}-{r_max} registers, spill "
               f"stores {spill} bytes at most")
-        if name == "xv":  # K2's instances, one line each
+        if name in ("xv", "dv"):  # K2's and K5's instances, one line each
             for fn, regs, sp in ptxas_functions(info["log"]):
                 print(f"     ptxas {fn}: {regs} registers, spill stores "
                       f"{sp} bytes")
@@ -534,19 +557,39 @@ def phase_kernels(dev):
                                      f"k={k}, masked={masked})")
         print(f"   B={B} k={k}: K3 at g = 1 bit-equal to K4's dq and dP, "
               "masked and unmasked")
-    # dv (B, m_pad, D, missing in data, no_missing); B = 300 at D = 32
-    # stages dXp in two passes (256 rows each)
-    cases = [(1, 2064, 4, True, False), (9, 4112, 5, True, False),
-             (37, 6160, 8, False, True), (96, 8208, 8, True, False),
-             (130, 4144, 16, False, False), (37, 4112, 32, True, False),
-             (300, 2064, 32, True, False)]
-    for B, m, D, missing, no_missing in cases:
-        packed = torch.from_numpy(random_packed(rng, B, m, m, missing)).to(dev)
-        dXp = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)
-                               ).to(dev)
-        e = check_dv(packed, dXp, no_missing)
+    # dv (B, m_pad, D, missing in data, no_missing, spike): B not a
+    # multiple of the 32-row k-step (1, 9, 33, 37, 130, 300) and over one
+    # 256-row scale chunk, m_pad not a multiple of the 512-SNP tile (and
+    # m_pad / 16 not of 4 words: the kernel's 4-byte copies), D from 1 to
+    # 32 (one launch per 8 columns), with and without code 3; a batch of
+    # more rows than one launch takes (na_dv_rows_per_launch, 2048) at
+    # D = 8 and D = 5; spike: spike_dv_case.
+    split = dv_ops.rows_per_launch() + 52
+    cases = [(1, 2064, 4, True, False, False),
+             (9, 4112, 5, True, False, False),
+             (37, 6160, 8, False, True, False),
+             (96, 8208, 8, True, False, False),
+             (130, 4144, 16, False, False, False),
+             (37, 4112, 32, True, False, False),
+             (300, 2064, 32, True, False, False),
+             (33, 2064, 1, True, False, False),
+             (800, 8192, 1, False, True, False),
+             (split, 2064, 8, True, False, False),
+             (split, 4096, 5, False, True, False),
+             (800, 8192, 8, True, False, True),
+             (800, 8208, 8, False, True, True),
+             (300, 4112, 1, True, False, True)]
+    for B, m, D, missing, no_missing, spike in cases:
+        if spike:
+            packed, dXp = spike_dv_case(rng, B, m, D, missing)
+        else:
+            packed = random_packed(rng, B, m, m, missing)
+            dXp = rng.normal(size=(B, D)).astype(np.float32)
+        a, r = check_dv(torch.from_numpy(packed).to(dev),
+                        torch.from_numpy(dXp).to(dev), no_missing)
         print(f"   dv B={B} m_pad={m} D={D} missing={missing} "
-              f"no_missing={no_missing}: max|d| {e:.3e}")
+              f"no_missing={no_missing} spike={spike}: max|d| {a:.3e}, "
+              f"max|d|/sum|x||dXp| {r:.3e}")
     # bce_sum (B, m_pad, k): k in {1, 7, 16} (templates 4, 8, 16), each
     # with and without code 3 in the data (no_missing set when there is
     # none), masked and unmasked; (600, 16) stages q in two passes
@@ -574,7 +617,8 @@ def phase_kernels(dev):
                  (640, 16, 38, 2064, 16, 5, False, True),
                  (300, 1, 15, 2080, 2, 4, False, True),
                  (1000, 1, 17, 2064, 9, 8, True, True),
-                 (1000, 1, 900, 2064, 16, 8, True, False)]:
+                 (1000, 1, 900, 2064, 16, 8, True, False),
+                 (2200, 1, 2100, 2064, 8, 8, True, False)]:
         e = check_indexed(dev, rng, *case)
         print(f"   indexed n_rows={case[0]} blk={case[1]} blocks={case[2]} "
               f"m_pad={case[3]} k={case[4]} D={case[5]} missing={case[6]} "
@@ -850,7 +894,7 @@ def phase_train(dev, packed):
                                      no_missing, False),
                 "loss_dq_dp": check_dq_dp(xb, q, P, cm, rw, 1.0, False,
                                           no_missing, True),
-                "dv": check_dv(xb, dXp, no_missing)}
+                "dv": check_dv(xb, dXp, no_missing)[0]}
         runs = {
             "xv": (lambda: (xv(xb, V_d, no_missing),),
                    lambda: (xv_plain(xb, V_d),)),
@@ -930,7 +974,8 @@ def work_shapes(B, W, k, D=D_FULL):
     one call at batch B, W packed bytes a row, k columns of q and P: each
     input read once, each output written once; an FMA counts as 2
     operations, a logarithm as 1. xv computes its products on the int8
-    tensor cores, three for each (one for each int8 piece of V); dq_dp
+    tensor cores, three for each (one for each int8 piece of V), dv four
+    for each (one for each int8 piece of dXp); dq_dp
     computes raw = q P and dq = draw P^T on the tensor cores in 3xTF32
     (three TF32 products for each), dP = q^T draw and the logarithms on
     the CUDA cores in fp32."""
@@ -946,7 +991,7 @@ def work_shapes(B, W, k, D=D_FULL):
                        {"tf32": 2 * 3 * product,
                         "fp32": product + 2 * B * m_pad}),
         "dv": ("dv.cu", 319, n_pk + B * D * 4 + m_pad * D * 4,
-               {"fp32": 2 * B * m_pad * D}),
+               {"int8": 4 * 2 * B * m_pad * D}),
         "bce_sum": ("bce_sum.cu", 136, n_pk + n_p + n_q + 4,
                     {"fp32": 2 * (k + 1) * B * m_pad}),
     }
@@ -1123,7 +1168,8 @@ def phase_multihead(dev, packed, V):
                 "loss_dq_dp_indexed": check_dq_dp(resident, q8, P8, cm, rw,
                                                   1.0, False, no_missing,
                                                   True, **ix),
-                "dv_indexed": check_dv(resident, dXp, no_missing, **ix),
+                "dv_indexed": check_dv(resident, dXp, no_missing,
+                                       **ix)[0],
                 "bce_sum_indexed": check_bce_sum(resident, q8, P8, cm, rw,
                                                  False, no_missing, **ix)}
         calls = {
@@ -1329,22 +1375,14 @@ def step_fn(model, xb, cm, rw, no_missing):
     return step
 
 
-def parent_xv_split(lib, B, W, D, sms):
-    """The split plan of the parent's xv wrapper (ops/xv.py before the int8
-    redesign), for its library in the A/B: blocks of
-    na_xv_rows_per_block(D) rows times SNP splits, about 4 blocks an SM in
-    all, no split without a chunk of its own."""
-    row_groups = -(-B // lib.na_xv_rows_per_block(D))
-    return max(1, min(lib.na_xv_chunks(W), -(-4 * sms // row_groups), 65535))
-
-
 def phase_ab(dev, parent_dir, parent_build):
     """This checkout's kernels against another version of them (``--ab DIR``:
     DIR a copy of another commit's ``csrc/``, built into DIR/build by
     ``parent_build``, a future of _build.build, while the other phases
     ran), in one process on one card, in the order parent, change, change,
     parent. Each turn times, at B = 800 on full-width rows, K2 and K5 at
-    D = 8, K3, K4 and K6 per head of K = 2..10, and a warm unlogged training
+    D = 8 (K5 gathered and indexed, at B = 800 and at the remainder
+    B = 96), K3, K4 and K6 per head of K = 2..10, and a warm unlogged training
     step at K = 8 and at K = 2..10; K2 also at B = 1024, the infer batch,
     and infer_q over N = 4096 full-width rows (host clock, the mean of 3
     runs after one). The wrappers reach the parent's
@@ -1361,10 +1399,6 @@ def phase_ab(dev, parent_dir, parent_build):
     change_load = _build.load
     loads = {"change": change_load,
              "parent": lambda name: parent_libs.get(name) or change_load(name)}
-    change_split = xv_ops.split_count
-    splits = {"change": change_split,
-              "parent": parent_xv_split if "xv" in parent_libs
-              else change_split}
 
     m_pad = -(-M_FULL // LANE) * LANE
     rng = np.random.default_rng(SEED + 2)
@@ -1375,6 +1409,14 @@ def phase_ab(dev, parent_dir, parent_build):
     rw = torch.ones(B, device=dev)
     dXp = torch.from_numpy(rng.standard_normal((B, D_FULL)).astype(
         np.float32)).to(dev)
+    # K5's indexed form reads xb as the resident rows, in shuffled blocks
+    # of BLOCK rows; the remainder batch is the first 96 rows
+    rem = 96
+    perm = rng.permutation(B // BLOCK).astype(np.int32)
+    ix800 = {"blk_idx": torch.from_numpy(perm).to(dev), "blk": BLOCK}
+    ix96 = {"blk_idx": torch.from_numpy(perm[:rem // BLOCK]).to(dev),
+            "blk": BLOCK}
+    xb96, dXp96 = xb[:rem].contiguous(), dXp[:rem].contiguous()
     models = {}
     for name, ks in (("K=8", [K_FULL]), ("K=2..10", KS_SWEEP)):
         params = random_params(rng, M_FULL, m_pad, D_FULL, H_FULL, ks)
@@ -1407,13 +1449,18 @@ def phase_ab(dev, parent_dir, parent_build):
         for turn, which in enumerate(("parent", "change", "change",
                                       "parent")):
             _build.load = loads[which]
-            xv_ops.split_count = splits[which]
             row = {}
             with torch.no_grad():
                 row["K2"] = cuda_ms(lambda: xv(xb, m9.V, no_missing), 10)
                 row["K2 B=1024"] = cuda_ms(
                     lambda: xv(xb_inf, m9.V, not inf_missing), 10)
                 row["K5"] = cuda_ms(lambda: dv(xb, dXp, no_missing), 10)
+                row["K5 indexed"] = cuda_ms(
+                    lambda: dv(xb, dXp, no_missing, **ix800), 10)
+                row["K5 B=96"] = cuda_ms(
+                    lambda: dv(xb96, dXp96, no_missing), 10)
+                row["K5 B=96 indexed"] = cuda_ms(
+                    lambda: dv(xb, dXp96, no_missing, **ix96), 10)
                 for hk, (q, P) in heads.items():
                     row[f"K3 {hk}"] = cuda_ms(lambda: dq_dp(
                         xb, q, P, cm, rw, 1.0, False, no_missing), 10)
@@ -1433,7 +1480,6 @@ def phase_ab(dev, parent_dir, parent_build):
                 f"{n} {v:.4f}" for n, v in row.items()), flush=True)
     finally:
         _build.load = change_load
-        xv_ops.split_count = change_split
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "ab.json"), "w") as fb:
         json.dump(results, fb, indent=1)

@@ -70,6 +70,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_s8.cuh"
 #include "unpack.cuh"
 
 namespace {
@@ -81,7 +82,6 @@ constexpr int kChunkSnps = kChunkWords * 16;  // 512 SNPs
 constexpr int kSteps = kChunkSnps / 32;       // k-steps of 32 SNPs
 constexpr int kPieces = 3;                    // lo, mid, hi
 constexpr int kMaxSums = 8192;                // running sums a launch, floats
-constexpr int kMinExp = -100;                 // 2^e and 2^-e stay normal
 constexpr uint32_t kSlice = 0x03030303u;
 
 // Columns of the n-tiles (8 each) of a width D <= 32.
@@ -101,44 +101,6 @@ size_t smem_bytes(int rows16) {
   return sizeof(uint32_t) * Geom<NT>::kPieceWords +
          sizeof(float) * ((size_t)rows16 * Dp + kWarps * Dp + Dp) +
          (INDEXED ? sizeof(int64_t) * rows16 : 0);
-}
-
-// c += a b on the tensor cores, m16n8k32, int8 operands, int32 accumulator.
-__device__ __forceinline__ void mma_s8(int32_t (&c)[4], uint32_t a0,
-                                       uint32_t a1, uint32_t a2, uint32_t a3,
-                                       uint2 b) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y));
-}
-
-// The smallest e with amax 2^-e <= 127 2^16 (amax = m 2^E, m in [0.5, 1):
-// E - 23 or E - 22), at least kMinExp; 0 for a zero column.
-__device__ __forceinline__ int scale_exp(float amax) {
-  if (!(amax > 0.f)) return 0;
-  int E;
-  const float m = frexpf(amax, &E);
-  const int e = m * 8388608.f <= 8323072.f ? E - 23 : E - 22;
-  return max(e, kMinExp);
-}
-
-__device__ __forceinline__ float exp2i(int e) {  // 2^e, e in [-126, 127]
-  return __int_as_float((127 + e) << 23);
-}
-
-// q = lo + 256 mid + 65536 hi, each piece in [-128, 127] for |q| <= 127 2^16.
-__device__ __forceinline__ void cut(int q, int& lo, int& mid, int& hi) {
-  lo = ((q + 128) & 255) - 128;
-  const int r1 = (q - lo) >> 8;
-  mid = ((r1 + 128) & 255) - 128;
-  hi = (r1 - mid) >> 8;
-}
-
-// The chunk's sum of g v of one output, from the pieces' accumulators:
-// exact in int64, rounded once to fp32.
-__device__ __forceinline__ float fold(int32_t hi, int32_t mid, int32_t lo) {
-  return __ll2float_rn((int64_t)hi * 65536 + (mid * 256 + lo));
 }
 
 template <int NT, bool NO_MISSING, bool INDEXED>

@@ -46,6 +46,15 @@ def _lib():
     return lib
 
 
+def rows_per_launch() -> int:
+    """Batch rows that one launch of the kernel takes (their int8 pieces of
+    dXp fill its shared memory); a larger batch takes several launches, each
+    adding into dV in order. Needs the built kernel."""
+    fn = _lib().na_dv_rows_per_launch
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
 def _check(packed: torch.Tensor, dXp: torch.Tensor, B: int) -> None:
     if packed.device != dXp.device:
         raise ValueError(f"packed is on {packed.device} but dXp on "

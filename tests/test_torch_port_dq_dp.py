@@ -226,9 +226,13 @@ def test_dq_dp_at_g_1_equals_loss_dq_dp_bit_for_bit(cuda_device, B, M, K):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,M,D", [(1, 2064, 4), (37, 6160, 8),
                                    (130, 4144, 16), (37, 4112, 32),
-                                   (300, 2064, 32)])
+                                   (300, 2064, 32), (33, 2064, 1),
+                                   (800, 4096, 1), (2100, 2064, 8)])
 @pytest.mark.parametrize("missing", [True, False])
 def test_dv_kernel_matches_plain_on_card(cuda_device, B, M, D, missing):
+    """B ragged against the kernel's 32-row k-steps and 256-row scale
+    chunks, M against its 512-SNP tiles, D from 1 to 32 (one launch per 8
+    columns), and B = 2100 past the 2048 rows of one launch."""
     rng = np.random.default_rng(B + D)
     G = rng.integers(0, 4 if missing else 3, size=(B, M)).astype(np.uint8)
     packed = torch.from_numpy(pack_2bit_rows(G)).to(cuda_device)
@@ -238,5 +242,30 @@ def test_dv_kernel_matches_plain_on_card(cuda_device, B, M, D, missing):
     got = dv(packed, dXp, no_missing=not missing)
     torch.cuda.synchronize()
     assert dv.launches == before + 1
+    (bound,) = _abs_bound(dv_plain(packed, dXp.abs()))
+    assert bool(((got - dv_plain(packed, dXp)).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D", [(300, 1), (800, 8)])
+def test_dv_kernel_on_a_spike_column_on_card(cuda_device, B, D):
+    """Column 0 of dXp holds in every 256-row chunk (the kernel's scale
+    chunk) one row 1000 times the rest, and that row's codes are 0 at 95%
+    of the SNPs: the small rows' sum is what the chunk's scale cuts
+    coarsest (tests/test_torch_port_dv_mma.py: three int8 pieces break the
+    rule here, the kernel's four keep it)."""
+    rng = np.random.default_rng(B + D)
+    M = 4112
+    G = rng.integers(0, 4, size=(B, M)).astype(np.uint8)
+    dXp = rng.normal(size=(B, D)).astype(np.float32)
+    dXp[:, 0] = rng.uniform(-1, 1, size=B)
+    for c0 in range(0, B, 256):
+        r = c0 + rng.integers(0, min(256, B - c0))
+        dXp[r, 0] = 1000.0 * (1 if rng.uniform() < 0.5 else -1)
+        G[r] = np.where(rng.uniform(size=M) < 0.05, 2, 0)
+    packed = torch.from_numpy(pack_2bit_rows(G)).to(cuda_device)
+    dXp = torch.from_numpy(dXp).to(cuda_device)
+    got = dv(packed, dXp)
+    torch.cuda.synchronize()
     (bound,) = _abs_bound(dv_plain(packed, dXp.abs()))
     assert bool(((got - dv_plain(packed, dXp)).abs() <= bound).all())
