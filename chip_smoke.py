@@ -9,9 +9,13 @@ non-zero exit and no result line:
 
   1. environment: a CUDA card is required; prints its name and power limit;
   2. build: compiles the kernels (nvcc, one process per source, in
-     parallel), prints build seconds and ptxas info;
+     parallel), prints build seconds and each instance's ptxas registers
+     and spills;
   3. kernel vs plain: xv, dq_dp, loss_dq_dp, dv and bce_sum against their
-     plain versions at small ragged shapes (xv also on a V with a 1000-fold
+     plain versions at small ragged shapes (bce_sum's term alone against
+     float64 on 2^24 (r, code) pairs, and bce_sum also on adversarial
+     planes: r in [1e-9, 1e-3] at x = 0, r exactly 0 and 1 at every code,
+     r within 2^-20 of 1 at code 2; xv also on a V with a 1000-fold
      spike in every 512-SNP chunk, dv on a dXp with a 1000-fold spike in
      every 256-row chunk on a row of mostly 0 codes, and on a batch that
      takes two launches by rows); the indexed form of each (K7:
@@ -44,7 +48,9 @@ non-zero exit and no result line:
      order parent, change, change, parent: K2 (B = 800 and 1024), K5
      gathered and indexed at B = 800 and at the remainder B = 96, K3, K4
      and K6 per head of K = 2..10, a warm unlogged training step at
-     K = 8 and K = 2..10, and infer_q (ab.json, beside the ptxas logs);
+     K = 8 and K = 2..10, a warm logged step of the split program at
+     K = 2..10, and infer_q (ab.json, beside the ptxas logs); each
+     instance's ptxas registers of DIR's build against the checkout's;
   8. one JSON line with every kernel's numbers (those of the phases run);
   9. the last line: {"ok": true, "device": {...}}.
 
@@ -69,6 +75,7 @@ sys.path.insert(0, REPO)
 
 from neural_admixture_tpu_torch import _build  # noqa: E402
 from neural_admixture_tpu_torch.infer import infer_q  # noqa: E402
+from neural_admixture_tpu_torch.io.packed import pack_2bit_rows  # noqa: E402
 from neural_admixture_tpu_torch.io.writers import (  # noqa: E402
     save_checkpoint, save_config)
 from neural_admixture_tpu_torch.models import qp  # noqa: E402
@@ -79,7 +86,7 @@ from neural_admixture_tpu_torch.ops.dq_dp import dq_dp, dq_dp_plain  # noqa: E40
 from neural_admixture_tpu_torch.ops import dv as dv_ops  # noqa: E402
 from neural_admixture_tpu_torch.ops.dv import dv, dv_plain  # noqa: E402
 from neural_admixture_tpu_torch.ops.fused import (  # noqa: E402
-    draw_tile, unpack_dosage)
+    bce_elem, draw_tile, unpack_dosage)
 from neural_admixture_tpu_torch.ops.fused_step import (  # noqa: E402
     fused_training_loss)
 from neural_admixture_tpu_torch.ops.loglikelihood import (  # noqa: E402
@@ -327,6 +334,43 @@ def check_bce_sum(packed, q, P, col_mask, row_w, masked, no_missing, **ix):
     return err
 
 
+BCE_PLANES = ("random", "small_r", "edges", "near_one")
+
+
+def bce_plane(rng, kind, B, M, k, missing):
+    """(G (B, M) uint8 codes, q (B, k), P (k, M)) of an adversarial decoder
+    plane for bce_sum, fp32 (a copy of tests/test_torch_port_bce_sum.py's
+    bce_plane, which the card's machine cannot import):
+
+    * small_r: x = 0 everywhere (codes 0, or 0 and 3), P = 10^U(-9, -3), so
+      r = q P in [1e-9, 1e-3], where log(1 - r) in fp32 would lose the loss
+      and only log1p keeps it;
+    * edges: q on the 2^-10 grid with rows summing to 1; P columns by turns
+      all 0 (r = 0, as the padded columns), all 1 (r = 1 exactly) and on
+      the grid in (-0.1, 1.1) (raw outside [0, 1] clamps), every code;
+    * near_one: one-hot q rows, P = 1 - u 2^-24 for u in 1..16, so that
+      r = P exactly within 2^-20 of 1, code 2 (with ``missing``, a quarter
+      code 3).
+    """
+    q = rng.dirichlet(np.ones(k), size=B)
+    if kind == "small_r":
+        G = 3 * (rng.uniform(size=(B, M)) < 0.25) if missing else \
+            np.zeros((B, M))
+        P = 10.0 ** rng.uniform(-9, -3, size=(k, M))
+    elif kind == "edges":
+        G = rng.integers(0, 4 if missing else 3, size=(B, M))
+        q = np.floor(q * 1024.0) / 1024.0
+        q[:, -1] = 1.0 - q[:, :-1].sum(axis=1)
+        P = np.round(rng.uniform(-0.1, 1.1, size=(k, M)) * 1024) / 1024
+        P[:, 0::3], P[:, 1::3] = 0.0, 1.0
+    else:
+        G = np.where(rng.uniform(size=(B, M)) < (0.25 if missing else 0.0),
+                     3, 2)
+        q = np.eye(k)[np.arange(B) % k]
+        P = 1.0 - rng.integers(1, 17, size=(k, M)) * 2.0 ** -24
+    return (G.astype(np.uint8), q.astype(np.float32), P.astype(np.float32))
+
+
 def check_indexed(dev, rng, n_rows, blk, nbk, m, k, D, missing, masked):
     """Every kernel on an indexed batch (``nbk`` shuffled blocks of ``blk``
     rows of ``n_rows`` resident rows): against its plain version, and bit
@@ -408,6 +452,13 @@ def ptxas_functions(log):
     return out
 
 
+def unhashed(fn):
+    """A mangled kernel name without the hash that nvcc gives the anonymous
+    namespace of each build, so that two builds' instances compare."""
+    import re
+    return re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", fn)
+
+
 def ptxas_summary(log):
     """(functions, min and max registers, largest spill stores in bytes)
     from nvcc's -Xptxas -v output."""
@@ -418,7 +469,9 @@ def ptxas_summary(log):
 
 
 def phase_build():
+    """Builds every kernel; returns {source: nvcc's -Xptxas -v log}."""
     t = phase("2. build")
+    logs = {}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     for name, info in _build.build().items():
@@ -426,13 +479,14 @@ def phase_build():
         print(f"   {name}: {info['seconds']:.1f} s -> {info['path'].name}; "
               f"ptxas: {n} functions, {r_min}-{r_max} registers, spill "
               f"stores {spill} bytes at most")
-        if name in ("xv", "dv"):  # K2's and K5's instances, one line each
-            for fn, regs, sp in ptxas_functions(info["log"]):
-                print(f"     ptxas {fn}: {regs} registers, spill stores "
-                      f"{sp} bytes")
+        for fn, regs, sp in ptxas_functions(info["log"]):  # each instance
+            print(f"     ptxas {fn}: {regs} registers, spill stores "
+                  f"{sp} bytes")
+        logs[name] = info["log"]
         with open(os.path.join(out_dir, f"ptxas_{name}.log"), "w") as fb:
             fb.write(info["log"])
     done(t)
+    return logs
 
 
 def check_division(dev, n=1 << 24):
@@ -475,12 +529,75 @@ def check_division(dev, n=1 << 24):
     return 1.0 - taken.float().mean().item()
 
 
+def check_bce_term(dev, n=1 << 24):
+    """bce_sum's one-log term (csrc/bce.cuh bce_elem_code) on the card
+    against the clamped BCE in float64 on n (r, code) pairs: r uniform on
+    [0, 1], log-uniform from 1e-45 to 1, and within 2^-4 of 1 on the 2^-24
+    grid, besides 0, 1 and denormals below e^-100; codes 0-3. Per element
+    within 1e-6 of the float64 term, never NaN, and bit for bit ops/fused.py
+    bce_elem (torch's logf and log1pf on the card) wherever a clamp decides
+    the term: r = 0 and r = 1 at every code, r below e^-100 at codes 1 and 2
+    (at codes 0 and 3 such an r gives r itself, -log1p(-r), exactly).
+    Returns the largest |d| / |float64 term|."""
+    lib = _build.load("bce_sum")
+    vp = ctypes.c_void_p
+    lib.na_bce_sum_term_check.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
+    lib.na_bce_sum_term_check.restype = ctypes.c_int
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kind = torch.randint(0, 3, (n,), device=dev, generator=gen)
+    u = torch.rand(n, device=dev, generator=gen)
+    lg = -45.0 * torch.rand(n, device=dev, generator=gen, dtype=torch.float64)
+    near = torch.randint(1, 1 << 20, (n,), device=dev, generator=gen)
+    r = torch.where(kind == 0, u.double(), torch.where(
+        kind == 1, 10.0 ** lg, 1.0 - near.double() * 2.0 ** -24)).float()
+    tiny = float(np.finfo(np.float32).smallest_subnormal)
+    clamped = torch.tensor([0.0, 1.0] + [m * tiny for m in (1, 2, 3, 10, 26)],
+                           device=dev)
+    r[:4 * len(clamped)] = clamped.repeat(4)
+    code = torch.randint(0, 4, (n,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    code[:4 * len(clamped)] = torch.arange(
+        4, device=dev, dtype=torch.int32).repeat_interleave(len(clamped))
+    out = torch.empty_like(r)
+    err = lib.na_bce_sum_term_check(r.data_ptr(), code.data_ptr(),
+                                    out.data_ptr(), n,
+                                    torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err != 0:
+        raise RuntimeError(f"term check launch failed: CUDA error {err}")
+    x = torch.where(code == 3, 0, code).double() / 2
+    r64 = r.double()
+    e64 = -(x * torch.clamp_min(torch.log(r64), -100.0)
+            + (1 - x) * torch.clamp_min(torch.log1p(-r64), -100.0))
+    d = (out.double() - e64).abs()
+    if torch.isnan(out).any() or not bool((d <= 1e-6 * e64.abs()).all()):
+        bad = (d > 1e-6 * e64.abs()) | torch.isnan(out)
+        raise AssertionError(
+            f"bce_sum's term off the float64 BCE at {int(bad.sum())} of {n} "
+            f"(r, code), e.g. r={r[bad][:3].tolist()} code="
+            f"{code[bad][:3].tolist()}")
+    head = slice(0, 4 * len(clamped))
+    want = bce_elem(r[head], x[head].float())
+    by_clamp = (code[head] == 1) | (code[head] == 2) | (r[head] == 0) | \
+        (r[head] == 1)
+    if not torch.equal(out[head][by_clamp].view(torch.int32),
+                       want[by_clamp].view(torch.int32)) or \
+            not torch.equal(out[head][~by_clamp], r[head][~by_clamp]):
+        raise AssertionError("bce_sum's term differs from bce_elem where a "
+                             "clamp decides it")
+    return (d / e64.abs().clamp_min(1e-300)).max().item()
+
+
 def phase_kernels(dev):
     """Every kernel against its plain version at small ragged shapes."""
     t = phase("3. kernels vs their plain versions")
     share = check_division(dev)
     print(f"   dq_dp's branch-free division: bit-equal to '/' on 2^24 pairs "
           f"of its domain; {share:.2e} of them taken by '/' instead")
+    rel = check_bce_term(dev)
+    print(f"   bce_sum's one-log term: on 2^24 (r, code) pairs within "
+          f"{rel:.2e} of the float64 BCE (rule 1e-6), no NaN, bit-equal to "
+          "bce_elem where a clamp decides it")
     rng = np.random.default_rng(SEED)
     # xv (B, M, D, missing in data, no_missing flag, spike): B not a
     # multiple of the 16-row tile, M not a multiple of the 512-SNP chunk
@@ -590,24 +707,33 @@ def phase_kernels(dev):
         print(f"   dv B={B} m_pad={m} D={D} missing={missing} "
               f"no_missing={no_missing} spike={spike}: max|d| {a:.3e}, "
               f"max|d|/sum|x||dXp| {r:.3e}")
-    # bce_sum (B, m_pad, k): k in {1, 7, 16} (templates 4, 8, 16), each
-    # with and without code 3 in the data (no_missing set when there is
-    # none), masked and unmasked; (600, 16) stages q in two passes
-    for B, m, k in [(9, 4112, 1), (96, 8208, 7), (600, 2064, 16)]:
-        for missing in (True, False):
-            packed = torch.from_numpy(random_packed(rng, B, m, m, missing)
-                                      ).to(dev)
-            q = torch.from_numpy(_q_rows(rng, B, k)).to(dev)
-            P = torch.from_numpy(_relative_p(rng, k, m)).to(dev)
-            cm = torch.from_numpy((rng.uniform(size=m) > 0.1)
-                                  .astype(np.float32)).to(dev)
-            rw = torch.from_numpy((rng.uniform(size=B) > 0.2)
-                                  .astype(np.float32)).to(dev)
-            for masked in (True, False):
-                e = check_bce_sum(packed, q, P, cm, rw, masked, not missing)
-                print(f"   bce_sum B={B} m_pad={m} k={k} missing={missing} "
-                      f"no_missing={not missing} masked={masked}: |d| "
-                      f"{e:.3e}")
+    # bce_sum (B, m_pad, k): k in {1, 7, 16} (both instances, KS = 1 and
+    # 2), each with and without code 3 in the data (no_missing set when
+    # there is none), masked and unmasked, on the random planes of q and P
+    # above and on the adversarial planes of bce_plane; (900, 16) and
+    # (1700, 7) stage their rows in two passes
+    for B, m, k in [(9, 4112, 1), (96, 8208, 7), (600, 2064, 16),
+                    (900, 2064, 16), (1700, 2064, 7)]:
+        for plane in BCE_PLANES:
+            for missing in (True, False):
+                if plane == "random":
+                    packed = random_packed(rng, B, m, m, missing)
+                    q, P = _q_rows(rng, B, k), _relative_p(rng, k, m)
+                else:
+                    G, q, P = bce_plane(rng, plane, B, m, k, missing)
+                    packed = pack_2bit_rows(G)
+                packed, q, P = (torch.from_numpy(a).to(dev)
+                                for a in (packed, q, P))
+                cm = torch.from_numpy((rng.uniform(size=m) > 0.1)
+                                      .astype(np.float32)).to(dev)
+                rw = torch.from_numpy((rng.uniform(size=B) > 0.2)
+                                      .astype(np.float32)).to(dev)
+                for masked in (True, False):
+                    e = check_bce_sum(packed, q, P, cm, rw, masked,
+                                      not missing)
+                    print(f"   bce_sum {plane} B={B} m_pad={m} k={k} "
+                          f"missing={missing} no_missing={not missing} "
+                          f"masked={masked}: |d| {e:.3e}")
     # indexed forms (n_rows resident, blk, blocks, m_pad, k, D, missing,
     # masked): blocks of 1 and of 16 rows over resident arrays larger than
     # the batch, in shuffled order
@@ -978,7 +1104,9 @@ def work_shapes(B, W, k, D=D_FULL):
     for each (one for each int8 piece of dXp); dq_dp
     computes raw = q P and dq = draw P^T on the tensor cores in 3xTF32
     (three TF32 products for each), dP = q^T draw and the logarithms on
-    the CUDA cores in fp32."""
+    the CUDA cores in fp32; bce_sum computes raw as dq_dp does, and its
+    work counts the two logarithms of the loss term whatever the kernel
+    spends on them (it spends one)."""
     m_pad = 4 * W
     n_pk, n_p, n_q = B * W, k * m_pad * 4, B * k * 4
     product = 2 * k * B * m_pad
@@ -993,7 +1121,7 @@ def work_shapes(B, W, k, D=D_FULL):
         "dv": ("dv.cu", 319, n_pk + B * D * 4 + m_pad * D * 4,
                {"int8": 4 * 2 * B * m_pad * D}),
         "bce_sum": ("bce_sum.cu", 136, n_pk + n_p + n_q + 4,
-                    {"fp32": 2 * (k + 1) * B * m_pad}),
+                    {"tf32": 3 * product, "fp32": 2 * B * m_pad}),
     }
 
 
@@ -1359,41 +1487,61 @@ def phase_cli_train(dev):
     done(t)
 
 
-def step_fn(model, xb, cm, rw, no_missing):
-    """One unlogged training step of the trainer (train/engine.py): the
-    fused loss, its backward (K2, K3 per head, K5), Adam and the P clamp."""
+def step_fn(model, xb, cm, rw, no_missing, logged=False, merged=True):
+    """One training step of the trainer (train/engine.py): the fused loss,
+    its backward, Adam and the P clamp. Unlogged: K2, K3 per head, K5;
+    ``logged``: K4 per head in the forward instead of K3 (``merged``), or
+    under the split program K6 per head in the forward and K3 in the
+    backward."""
     opt = torch.optim.Adam(model.parameters(), lr=2e-3, betas=(0.9, 0.95),
                            eps=1e-8)
 
     def step():
         opt.zero_grad(set_to_none=True)
         loss, _ = fused_training_loss(model, xb, cm, rw, False, no_missing,
-                                      False)
+                                      logged, merged)
         loss.backward()
         opt.step()
         model.restrict_P()
     return step
 
 
-def phase_ab(dev, parent_dir, parent_build):
+def phase_ab(dev, parent_dir, parent_build, logs):
     """This checkout's kernels against another version of them (``--ab DIR``:
     DIR a copy of another commit's ``csrc/``, built into DIR/build by
     ``parent_build``, a future of _build.build, while the other phases
     ran), in one process on one card, in the order parent, change, change,
     parent. Each turn times, at B = 800 on full-width rows, K2 and K5 at
     D = 8 (K5 gathered and indexed, at B = 800 and at the remainder
-    B = 96), K3, K4 and K6 per head of K = 2..10, and a warm unlogged training
-    step at K = 8 and at K = 2..10; K2 also at B = 1024, the infer batch,
-    and infer_q over N = 4096 full-width rows (host clock, the mean of 3
-    runs after one). The wrappers reach the parent's
-    libraries through _build.load; a kernel that DIR lacks runs the
-    checkout's in both. Writes chiprun_out/ab.json."""
+    B = 96), K3, K4 and K6 per head of K = 2..10, a warm unlogged training
+    step at K = 8 and at K = 2..10, and a warm logged step of the split
+    program (K6 + K3 per head) at K = 2..10; K2 also at B = 1024, the infer
+    batch, and infer_q over N = 4096 full-width rows (host clock, the mean
+    of 3 runs after one). The wrappers reach the parent's libraries through
+    _build.load; a kernel that DIR lacks runs the checkout's in both. First
+    it says whether each kernel instance of DIR's build has the registers
+    and spills of the checkout's (``logs``: phase 2's ptxas logs, or empty).
+    Writes chiprun_out/ab.json."""
     t = phase(f"A/B: {parent_dir} (parent) vs this checkout's kernels")
     built = parent_build.result()
+    for name, info in _build.build().items():  # built here unless phase 2 ran
+        logs.setdefault(name, info["log"])
     for name, info in built.items():
         n, r_min, r_max, spill = ptxas_summary(info["log"])
         print(f"   parent {name}: ptxas: {n} functions, {r_min}-{r_max} "
               f"registers, spill stores {spill} bytes at most")
+        mine = {unhashed(fn): (r, sp) for fn, r, sp in
+                ptxas_functions(logs.get(name, ""))}
+        theirs = ptxas_functions(info["log"])
+        same = bool(mine) and mine == {unhashed(fn): (r, sp)
+                                       for fn, r, sp in theirs}
+        print(f"     every instance's registers and spills as this "
+              f"checkout's: {same}")
+        if not same:
+            for fn, regs, sp in theirs:
+                print(f"     parent ptxas {fn}: {regs} registers, spill "
+                      f"stores {sp} bytes; checkout "
+                      f"{mine.get(unhashed(fn), 'absent')}")
     parent_libs = {name: ctypes.CDLL(str(info["path"]))
                    for name, info in built.items()}
     change_load = _build.load
@@ -1471,6 +1619,9 @@ def phase_ab(dev, parent_dir, parent_build):
             for name, model in models.items():
                 row[f"step {name}"] = cuda_ms(
                     step_fn(model, xb, cm, rw, no_missing), 10)
+            row["logged split step K=2..10"] = cuda_ms(step_fn(
+                models["K=2..10"], xb, cm, rw, no_missing, logged=True,
+                merged=False), 10)
             row["infer_q"] = infer_ms()
             for kid in ("K3", "K4", "K6"):
                 row[f"{kid} sum of heads"] = sum(
@@ -1533,8 +1684,7 @@ def main(argv=None):
         parent_build = pool.submit(_build.build, None,
                                    os.path.abspath(args.ab))
         pool.shutdown(wait=False)
-    if "build" in run:
-        phase_build()
+    logs = phase_build() if "build" in run else {}
     kernels = []
     if "kernels" in run:
         phase_kernels(dev)
@@ -1552,7 +1702,7 @@ def main(argv=None):
     if "cli_train" in run:
         phase_cli_train(dev)
     if parent_build is not None:
-        phase_ab(dev, args.ab, parent_build)
+        phase_ab(dev, args.ab, parent_build, logs)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

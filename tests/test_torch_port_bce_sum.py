@@ -1,7 +1,8 @@
 """The port's bce_sum (K6) and the indexed form of every packed-plane
 kernel (K7) against the JAX package, on the CPU; on a CUDA host, each
-kernel against its plain version and each indexed kernel bit for bit
-against its gathered form.
+kernel against its plain version (bce_sum also on the adversarial planes of
+``bce_plane``) and each indexed kernel bit for bit against its gathered
+form.
 
 K6: the plain version against the JAX package's ``_loss_call`` (interpret
 mode on the CPU), masked and unmasked, with and without missing codes, one
@@ -230,17 +231,60 @@ def test_bce_sum_rejects_bad_inputs(bad):
         bce_sum(packed, q, P, cm, rw, True, **kw)
 
 
+PLANES = ["random", "small_r", "edges", "near_one"]
+
+
+def bce_plane(rng, kind, B, M, k, missing):
+    """(G (B, M) uint8 codes, q (B, k), P (k, M)) of one kind of decoder
+    plane, fp32:
+
+    * random: codes 0-2 (0-3 with ``missing``), Dirichlet q, P in (0.1, 0.9);
+    * small_r: x = 0 everywhere (codes 0, or 0 and 3), P = 10^U(-9, -3), so
+      r = q P in [1e-9, 1e-3], where log(1 - r) in fp32 would lose the loss
+      and only log1p keeps it;
+    * edges: q on the 2^-10 grid with rows summing to 1; P columns by turns
+      all 0 (r = 0, as the padded columns), all 1 (r = 1 exactly) and on
+      the grid in (-0.1, 1.1) (raw outside [0, 1] clamps), every code;
+    * near_one: one-hot q rows, P = 1 - u 2^-24 for u in 1..16, so that
+      r = P exactly within 2^-20 of 1, code 2 (with ``missing``, a quarter
+      code 3).
+    """
+    hi = 4 if missing else 3
+    if kind == "random":
+        G = rng.integers(0, hi, size=(B, M))
+        q = rng.dirichlet(np.ones(k), size=B)
+        P = rng.uniform(0.1, 0.9, size=(k, M))
+        return (G.astype(np.uint8), q.astype(np.float32),
+                P.astype(np.float32))
+    q = rng.dirichlet(np.ones(k), size=B)
+    if kind == "small_r":
+        G = 3 * (rng.uniform(size=(B, M)) < 0.25) if missing else \
+            np.zeros((B, M))
+        P = 10.0 ** rng.uniform(-9, -3, size=(k, M))
+    elif kind == "edges":
+        G = rng.integers(0, hi, size=(B, M))
+        q = np.floor(q * 1024.0) / 1024.0
+        q[:, -1] = 1.0 - q[:, :-1].sum(axis=1)
+        P = np.round(rng.uniform(-0.1, 1.1, size=(k, M)) * 1024) / 1024
+        P[:, 0::3], P[:, 1::3] = 0.0, 1.0
+    else:
+        G = np.where(rng.uniform(size=(B, M)) < (0.25 if missing else 0.0),
+                     3, 2)
+        q = np.eye(k)[np.arange(B) % k]
+        P = 1.0 - rng.integers(1, 17, size=(k, M)) * 2.0 ** -24
+    return (G.astype(np.uint8), q.astype(np.float32), P.astype(np.float32))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("plane", PLANES)
 @pytest.mark.parametrize("B,M,K", [(9, 4112, 1), (96, 8208, 7),
                                    (37, 4144, 16), (600, 2064, 16)])
 @pytest.mark.parametrize("masked", [True, False])
 @pytest.mark.parametrize("missing", [True, False])
 def test_bce_sum_kernel_matches_plain_on_card(cuda_device, B, M, K, masked,
-                                              missing):
+                                              missing, plane):
     rng = np.random.default_rng(B + K)
-    G = rng.integers(0, 4 if missing else 3, size=(B, M)).astype(np.uint8)
-    q = rng.dirichlet(np.ones(K), size=B).astype(np.float32)
-    P = rng.uniform(0.1, 0.9, size=(K, M)).astype(np.float32)
+    G, q, P = bce_plane(rng, plane, B, M, K, missing)
     cm = (rng.uniform(size=M) > 0.1).astype(np.float32)
     rw = (rng.uniform(size=B) > 0.2).astype(np.float32)
     args = [t.to(cuda_device) for t in _port(pack_2bit_rows(G), q, P, cm, rw)]
