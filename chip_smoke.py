@@ -23,8 +23,11 @@ non-zero exit and no result line:
      for bit against the same kernel on the gathered batch; dq_dp at g = 1
      bit for bit against loss_dq_dp;
   4. full width: infer_q at N=4096, M=1,000,000, K=8, H=1024, D=8, batch 1024
-     (seeded random rows and weights); counts the kernel launches, times the
-     kernel, its plain version and each part of a batch;
+     (seeded random rows and weights), its batches staged through the
+     pinned ring (io/stage.py); counts the kernel launches, times the
+     kernel, its plain version and each part of a batch; the parent's
+     pageable path and a path that registers the host rows with the CUDA
+     runtime instead, timed beside it, each with a Q bit-equal to its;
   5. CLI: a seeded K=7 checkpoint, then ``infer`` on the demo BED on the card
      and on the CPU, compared;
   6. full width: training on phase 4's rows (RSVD, PCA, GMM, P init, two
@@ -38,10 +41,20 @@ non-zero exit and no result line:
      exact launch counts of each, the runs held to each other, the indexed
      forms, bce_sum and the gather they replace timed at batch 800, and
      dq_dp and loss_dq_dp per head;
+  6c. full width, host streaming and checkpoints (K = 8, phase 6's rows,
+     V, P init and resident run): 2-epoch streamed runs bit-equal to the
+     resident ones on the default and the split program (exact launch
+     counts), a step's host gather, copy and compute, streamed and resident
+     samples/s; 2 epochs with a checkpoint every epoch resumed (streamed)
+     to 3, bit-equal to 3 uninterrupted epochs, with the save and load
+     seconds; the streamed RSVD and PCA projection bit-equal to phase 6's;
   7. CLI: ``train`` on the demo BED on the card and on the CPU (K = 7, a
      K range 2..4, and supervised with the argmax labels of the reference's
-     K = 7 Q, which name 5 populations): the output files, the .npz through ``infer``, the demo's golden
-     measures, and the two runs held to each other by the trajectory rule;
+     K = 7 Q, which name 5 populations): the output files, the .npz through
+     ``infer``, the demo's golden measures, and the two runs held to each
+     other by the trajectory rule; on the card ``--stream 1`` writes the
+     resident run's .Q and .P byte for byte, and a ``--checkpoint_every``
+     run sent SIGTERM exits 143 and its ``--resume`` finishes;
   A/B (only with ``--ab DIR``): the kernels of DIR, a copy of another
      commit's csrc/ with the same C interfaces (the parent's), built into
      DIR/build while the phases run, timed against the checkout's in the
@@ -51,7 +64,9 @@ non-zero exit and no result line:
      K = 8 and K = 2..10, a warm logged step of the split program at
      K = 2..10, and infer_q (ab.json, beside the ptxas logs); each
      instance's ptxas registers of DIR's build against the checkout's;
-  8. one JSON line with every kernel's numbers (those of the phases run);
+  8. the run's seconds, the card's name and power limit, one JSON line with
+     every kernel's numbers (those of the phases run; launches: phases 6,
+     6b and 6c's streamed runs);
   9. the last line: {"ok": true, "device": {...}}.
 
 ``--phases env,build,kernels`` runs only those phases (a short check of a
@@ -62,6 +77,7 @@ Imports nothing of JAX or of the JAX package.
 import ctypes
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -76,6 +92,8 @@ sys.path.insert(0, REPO)
 from neural_admixture_tpu_torch import _build  # noqa: E402
 from neural_admixture_tpu_torch.infer import infer_q  # noqa: E402
 from neural_admixture_tpu_torch.io.packed import pack_2bit_rows  # noqa: E402
+from neural_admixture_tpu_torch.io.stage import (  # noqa: E402
+    HostStager, gather_rows)
 from neural_admixture_tpu_torch.io.writers import (  # noqa: E402
     save_checkpoint, save_config)
 from neural_admixture_tpu_torch.models import qp  # noqa: E402
@@ -120,6 +138,9 @@ PROGRAMS = {"default": {}, "indexed": {"NA_TPU_INDEXED": "1"},
             "indexed+split": {"NA_TPU_INDEXED": "1",
                               "NA_TPU_SPLIT_LOSS": "1"}}
 PROGRAM_VARS = ("NA_TPU_INDEXED", "NA_TPU_SPLIT_LOSS", "NA_TPU_FORCE_MASKED")
+# The programs phase 6c streams at K = 8 (gathered: streamed batches are
+# never indexed).
+PROGRAMS_K8 = {"default": {}, "split": {"NA_TPU_SPLIT_LOSS": "1"}}
 FSP = "neural_admixture_tpu/ops/fused_step.py"
 LANE = 2048
 DEMO_BED = os.path.join(REPO, "demo", "data", "demo_data.bed")
@@ -811,9 +832,9 @@ def phase_infer(dev):
         ms = cuda_ms(lambda: xv(blk, model.V, False), 20)
         plain_ms = cuda_ms(lambda: xv_plain(blk, model.V), 3)
         enc_ms = cuda_ms(lambda: model.encode_from_xp(xp_k), 20)
-    # Host-clock split of one infer_q run into its steps: weights to the
-    # card, the missing-code scan, then per batch the rows to the card, the
-    # forward (xv + encoder) and Q back to the host.
+    # The parent's pageable path (train/chunked.py before the stager): per
+    # batch a pageable host->device copy, the forward, Q back to the host;
+    # split on the host clock, and its Q against the staged infer_q's.
     split = dict.fromkeys(("weights", "scan", "rows->card", "forward",
                            "Q->host"), 0.0)
     t_s = time.perf_counter()
@@ -823,6 +844,7 @@ def phase_infer(dev):
     t_s = time.perf_counter()
     no_missing = not packed_has_missing(packed)
     split["scan"] = time.perf_counter() - t_s
+    q_pageable = []
     with torch.no_grad():
         for i in range(0, N_FULL, BATCH):
             t_s = time.perf_counter()
@@ -832,16 +854,32 @@ def phase_infer(dev):
             q = model(b, no_missing)[f"k{K_FULL}"]
             torch.cuda.synchronize()
             t_q = time.perf_counter()
-            q.cpu().numpy()
+            q_pageable.append(q.cpu().numpy())
             t_e = time.perf_counter()
             split["rows->card"] += t_f - t_s
             split["forward"] += t_q - t_f
             split["Q->host"] += t_e - t_q
-    print("   infer_q steps, host clock, ms in all: " + ", ".join(
-        f"{k} {1e3 * v:.3f}" for k, v in split.items()))
+    pageable_wall = sum(split.values())
+    if not np.array_equal(np.concatenate(q_pageable), Q):
+        raise AssertionError("staged infer_q's Q differs from the pageable "
+                             "path's")
+    print("   pageable path (the parent's), host clock, ms in all: "
+          + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in split.items())
+          + f"; Q bit-equal to the staged infer_q's")
     h2d_ms = cuda_ms(lambda: torch.from_numpy(packed[:BATCH]).to(dev), 5)
+    # Pinning a batch-sized slot: PyTorch's pinned allocator (cudaHostAlloc,
+    # the process's first pinned block) against the stager's registration.
+    t_s = time.perf_counter()
     pinned = torch.from_numpy(packed[:BATCH]).pin_memory()
+    pin_alloc_s = time.perf_counter() - t_s
+    staged = {level: staged_batches(params, packed, dev, Q, level)
+              for level in (2, 1, 0)}
     h2d_pinned_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), 5)
+    gather = {}
+    for threads in (1, 4, 8):
+        gather[threads] = 1e3 * host_gather_s(packed, pinned.numpy(),
+                                              threads)
+    reg = infer_registered(params, packed, dev, Q)
     _, _, n_bytes, n_ops = work_shapes(BATCH, W, K_FULL)["xv"]
     bound_ms, bound_by = bound(n_bytes, n_ops)
     print(f"   per batch of {BATCH}: xv kernel {ms:.4f} ms (bound "
@@ -850,12 +888,138 @@ def phase_infer(dev):
           f"xv_plain {plain_ms:.3f} ms")
     print(f"   per batch: host->device copy {h2d_ms:.3f} ms pageable "
           f"({BATCH * W / h2d_ms / 1e6:.2f} GB/s), {h2d_pinned_ms:.3f} ms "
-          f"pinned; encoder {enc_ms:.4f} ms; kernel {ms:.4f} ms; "
-          f"infer_q wall {1e3 * wall / n_batches:.3f} ms per batch")
+          f"pinned ({BATCH * W / h2d_pinned_ms / 1e6:.2f} GB/s); encoder "
+          f"{enc_ms:.4f} ms; kernel {ms:.4f} ms")
+    print(f"   pinning {BATCH * W / 1e6:.1f} MB: pin_memory() "
+          f"{1e3 * pin_alloc_s:.1f} ms (cudaHostAlloc)")
+    for level, st in staged.items():
+        print(f"   NA_TPU_STREAM_PREFETCH={level}: the stager's host slots "
+              f"({st['pinned'] / 1e6:.1f} MB) allocated, pre-faulted and "
+              f"registered (cudaHostRegister) {1e3 * st['setup']:.1f} ms, "
+              f"released {1e3 * st['release']:.1f} ms; its batches alone "
+              f"(the ring built beforehand) "
+              f"{1e3 * st['batches'] / n_batches:.3f} ms a batch, gather "
+              f"{1e3 * st['gather'] / n_batches:.3f} ms a batch (host "
+              f"clock); Q bit-equal")
+    print("   per batch, the host gather into a pinned slot (host clock, "
+          "contiguous rows): " + ", ".join(
+              f"{t} thread{'s' * (t > 1)} {g:.3f} ms "
+              f"({BATCH * W / g / 1e6:.2f} GB/s)" for t, g in gather.items()))
+    print(f"   per batch, wall: staged infer_q (a: gathered into the pinned "
+          f"ring) {1e3 * wall_first / n_batches:.3f} ms first call, "
+          f"{1e3 * wall / n_batches:.3f} ms second; pageable (the parent's) "
+          f"{1e3 * pageable_wall / n_batches:.3f} ms; registered (b: "
+          f"cudaHostRegister of all rows, slices copied from them) "
+          f"{1e3 * reg['wall'] / n_batches:.3f} ms, plus "
+          f"{1e3 * reg['register']:.1f} ms to register and "
+          f"{1e3 * reg['unregister']:.1f} ms to unregister "
+          f"{packed.nbytes / 1e9:.2f} GB (copy {reg['copy_ms']:.3f} ms a "
+          "batch); Q of (b) bit-equal")
     del blk, pinned, model
     done(t)
     return packed
 
+
+def host_gather_s(packed, out, threads, reps=3):
+    """Best host-clock seconds of gathering one batch of contiguous rows
+    into ``out`` (a pinned slot's array) split over ``threads`` threads, as
+    the stager's gather (io/stage.py gather_rows)."""
+    from concurrent.futures import ThreadPoolExecutor
+    rows = np.arange(out.shape[0], dtype=np.int64)
+    cuts = np.linspace(0, len(rows), threads + 1).astype(int)
+    best = float("inf")
+    with ThreadPoolExecutor(threads) as pool:
+        for _ in range(reps):
+            t_s = time.perf_counter()
+            futs = [pool.submit(gather_rows, packed, rows[a:b], out[a:b])
+                    for a, b in zip(cuts[:-1], cuts[1:])]
+            for f in futs:
+                f.result()
+            best = min(best, time.perf_counter() - t_s)
+    return best
+
+
+def staged_batches(params, packed, dev, Q_want, level):
+    """infer_q's loop with the stager (prefetch ``level``) built
+    beforehand: host-clock seconds of the stager's set-up, of the batches
+    (through ``chunked_forward``, as infer_q), of their gathers and of the
+    stager's release, and its pinned bytes; checks Q bit for bit."""
+    from neural_admixture_tpu_torch.train.chunked import chunked_forward
+    out = {}
+    model = params_from_numpy(params, [K_FULL], dev)
+    no_missing = not packed_has_missing(packed)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter()
+    stager = HostStager(dev, BATCH, packed.shape[1], prefetch=level)
+    out["setup"] = time.perf_counter() - t_s
+    out["pinned"] = sum(h.numel() for h in stager._host)
+    t_s = time.perf_counter()
+    with torch.no_grad():
+        qs = chunked_forward(lambda b: model(b, no_missing), packed, N_FULL,
+                             BATCH, dev, stager=stager)
+    out["batches"] = time.perf_counter() - t_s
+    out["gather"] = stager.gather_seconds
+    t_s = time.perf_counter()
+    stager.close()
+    out["release"] = time.perf_counter() - t_s
+    if not np.array_equal(qs[f"k{K_FULL}"], Q_want):
+        raise AssertionError("staged batches' Q differs from infer_q's")
+    return out
+
+
+def infer_registered(params, packed, dev, Q_want):
+    """Way (b) of pinning for infer: register the whole host array with the
+    CUDA runtime once and copy each batch's rows straight from it (no host
+    memcpy), on a side stream into two device slots. Returns host-clock
+    seconds of the registration, the batches and the unregistration, and
+    the copy's ms a batch (CUDA events); checks Q bit for bit. The wall
+    counts what infer_q's does: the weights, the missing-code scan and the
+    batches."""
+    cudart = torch.cuda.cudart()
+    host = torch.from_numpy(packed)
+    W = packed.shape[1]
+    out = {}
+    t_s = time.perf_counter()
+    err = int(cudart.cudaHostRegister(host.data_ptr(), packed.nbytes, 0))
+    out["register"] = time.perf_counter() - t_s
+    if err:
+        raise RuntimeError(f"cudaHostRegister failed: error {err}")
+    try:
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()  # as infer_q: weights, scan, batches
+        model = params_from_numpy(params, [K_FULL], dev)
+        no_missing = not packed_has_missing(packed)
+        slots = [torch.empty((BATCH, W), dtype=torch.uint8, device=dev)
+                 for _ in range(2)]
+        side = torch.cuda.Stream(dev)
+        freed = [None, None]
+        parts = []
+        with torch.no_grad():
+            for j, i in enumerate(range(0, N_FULL, BATCH)):
+                s = j % 2
+                with torch.cuda.stream(side):
+                    if freed[s] is not None:
+                        side.wait_event(freed[s])
+                    slots[s].copy_(host[i:i + BATCH], non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record(side)
+                torch.cuda.current_stream(dev).wait_event(copied)
+                parts.append(model(slots[s], no_missing)[f"k{K_FULL}"])
+                freed[s] = torch.cuda.Event()
+                freed[s].record()
+            Q = torch.cat(parts).cpu().numpy()
+        out["wall"] = time.perf_counter() - t_s
+        out["copy_ms"] = cuda_ms(
+            lambda: slots[0].copy_(host[:BATCH], non_blocking=True), 5)
+    finally:
+        t_s = time.perf_counter()
+        err = int(cudart.cudaHostUnregister(host.data_ptr()))
+        out["unregister"] = time.perf_counter() - t_s
+    if err:
+        raise RuntimeError(f"cudaHostUnregister failed: error {err}")
+    if not np.array_equal(Q, Q_want):
+        raise AssertionError("(b)'s Q differs from the staged infer_q's")
+    return out
 
 
 def phase_cli_infer():
@@ -980,7 +1144,7 @@ def phase_train(dev, packed):
     P_init = init_p_unsupervised(packed_dev, V, N_FULL, M_FULL, [k], SEED,
                                  x_pca=x_pca)
     setup["GMM"] = time.perf_counter() - t_s
-    del packed_dev, x_pca
+    del packed_dev
 
     # Step 0 as the trainer will draw it (utils/seeding.py streams): its
     # initial parameters and the first full batch of epoch 0.
@@ -1092,7 +1256,9 @@ def phase_train(dev, packed):
         kernels.append(kernel_entry(name, *shapes[name][:2], counts[name],
                                     err, ms, plain_ms, *shapes[name][2:]))
     done(t)
-    return kernels, V
+    return kernels, {"V": V, "P_init": P_init, "x_pca": x_pca,
+                     "setup": setup, "run": (Qs, Ps, params),
+                     "trainer": trainer}
 
 
 def work_shapes(B, W, k, D=D_FULL):
@@ -1164,6 +1330,10 @@ def expected_counts(program, nb, n_heads, n_q):
     if program == "default":
         want.update(xv=steps + n_q, dv=steps, loss_dq_dp=nb * n_heads,
                     dq_dp=nb * n_heads)
+        return want
+    if program == "split":  # gathered; the logged epoch's K4 is K6 + K3
+        want.update(xv=steps + n_q, dv=steps, bce_sum=nb * n_heads,
+                    dq_dp=2 * nb * n_heads)
         return want
     want.update(xv=2 * rem + n_q, xv_indexed=2 * full, dv=2 * rem,
                 dv_indexed=2 * full)
@@ -1376,6 +1546,201 @@ def phase_multihead(dev, packed, V):
     return kernels
 
 
+def add_launches(kernels, counts):
+    """Add a later path's launches (``counts``: kernels-line name -> n) to
+    the entries of the ``kernels`` line."""
+    for entry in kernels:
+        entry["launches"] += counts.get(entry["name"], 0)
+
+
+def same_run(a, b):
+    """Are two launch_training results (Qs, Ps, params) equal bit for
+    bit?"""
+    from neural_admixture_tpu_torch.io.writers import _flatten
+    return all(np.array_equal(x, y) for x, y in zip(a[0] + a[1],
+                                                    b[0] + b[1])) and all(
+        np.array_equal(x, _flatten(b[2])[n])
+        for n, x in _flatten(a[2]).items())
+
+
+def phase_stream(dev, packed, trained):
+    """Host-streamed training at full width (phase 4's rows, phase 6's V,
+    P init and resident run, K = 8, batch 800, sample_block 16): 2-epoch
+    streamed runs bit-equal to resident ones on the default and the split
+    program, the split of a step into the host gather, the copy and the
+    compute, a run resumed from a checkpoint bit-equal to an uninterrupted
+    one, and the streamed RSVD and PCA projection bit-equal to the
+    resident ones. Returns the streamed runs' launches."""
+    t = phase("6c. full width: streamed training, checkpoint/resume")
+    from neural_admixture_tpu_torch.train.engine import (CKPT_FORMAT,
+                                                         INFER_BATCH)
+    W = packed.shape[1]
+    m_pad, k, B = 4 * W, K_FULL, TRAIN_BATCH
+    _, nb, _, n_rows = block_geometry(N_FULL, B, BLOCK)
+    n_q = -(-N_FULL // INFER_BATCH)
+    V, P_init = trained["V"], trained["P_init"]
+    streamed_counts = dict.fromkeys(COUNTERS, 0)
+
+    def train(epochs, program, stream, **kw):
+        os.environ.update(PROGRAMS_K8[program])
+        cfg = TrainConfig(epochs=epochs, batch_size=B, seed=SEED,
+                          hidden_size=H_FULL, n_components=D_FULL, ks=[k],
+                          progress=False, sample_block=BLOCK,
+                          device=str(dev), stream=stream, **kw)
+        trainer = NeuralAdmixtureTrainer(cfg)
+        reset_counts()
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        out = trainer.launch_training(P_init, packed, V, M_FULL, N_FULL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_s
+        counts = read_counts()
+        for var in PROGRAM_VARS:
+            os.environ.pop(var, None)
+        if trainer._streamed != stream:
+            raise AssertionError(f"asked stream={stream}, ran "
+                                 f"{trainer._streamed}")
+        if stream:
+            for n, c in counts.items():
+                streamed_counts[n] += c
+        return out, trainer, counts, wall
+
+    def rate(trainer):
+        return N_FULL * len(trainer.epoch_seconds) / trainer.train_seconds
+
+    # Streamed against resident, 2 epochs: the default program against
+    # phase 6's resident run, the split program against its own.
+    runs = {}
+    for program, resident in (("default", (trained["run"],
+                                           trained["trainer"])),
+                              ("split", None)):
+        if resident is None:
+            out, tr, _, _ = train(TRAIN_EPOCHS, program, False)
+            resident = (out, tr)
+        out, tr, counts, wall = train(TRAIN_EPOCHS, program, True)
+        want = expected_counts(program, nb, 1, n_q)
+        if counts != want:
+            raise AssertionError(f"streamed {program}: launches {counts}, "
+                                 f"expected {want}")
+        if not same_run(out, resident[0]):
+            raise AssertionError(f"streamed {program} run differs from the "
+                                 "resident one")
+        runs[program] = (tr, resident[1])
+        e_s, e_r = tr.epoch_seconds[1], resident[1].epoch_seconds[1]
+        print(f"   {program} program: streamed = resident bit for bit "
+              f"(Q, P, every parameter); launches "
+              + ", ".join(f"{n} {c}" for n, c in counts.items() if c)
+              + f" (as expected); epoch 1 streamed {1e3 * e_s:.1f} ms "
+              f"({1e3 * e_s / nb:.2f} ms a step, {N_FULL / e_s:,.0f} "
+              f"samples/s), resident {1e3 * e_r:.1f} ms ({1e3 * e_r / nb:.2f} "
+              f"ms a step, {N_FULL / e_r:,.0f} samples/s); over "
+              f"{TRAIN_EPOCHS} epochs streamed {rate(tr):,.0f} samples/s, "
+              f"resident {rate(resident[1]):,.0f}; "
+              f"launch_training wall {wall:.3f} s; the stager's gathers "
+              f"{1e3 * tr.stager.gather_seconds:.1f} ms for "
+              f"{tr.stager.bytes_gathered / 1e9:.2f} GB")
+
+    # The other prefetch levels (the default on the card is 2), default
+    # program: the same run, epoch 1's wall.
+    for level in ("1", "0"):
+        os.environ["NA_TPU_STREAM_PREFETCH"] = level
+        try:
+            out, tr, _, _ = train(TRAIN_EPOCHS, "default", True)
+        finally:
+            del os.environ["NA_TPU_STREAM_PREFETCH"]
+        if tr.stager.prefetch != int(level) or \
+                not same_run(out, trained["run"]):
+            raise AssertionError(f"NA_TPU_STREAM_PREFETCH={level}: run "
+                                 "differs from the resident one")
+        e_s = tr.epoch_seconds[1]
+        print(f"   NA_TPU_STREAM_PREFETCH={level}, default program: "
+              f"streamed = resident bit for bit; epoch 1 {1e3 * e_s:.1f} ms "
+              f"({1e3 * e_s / nb:.2f} ms a step, {N_FULL / e_s:,.0f} "
+              "samples/s)")
+
+    # A streamed step's parts at epoch 1: the host gather of its rows
+    # through the pre-shuffle (host clock), the pinned copy and a resident
+    # unlogged step (CUDA events).
+    row_order = np.random.default_rng(SEED).permutation(N_FULL)
+    host_row = np.concatenate([row_order, np.full(n_rows - N_FULL, -1)])
+    idx_full, idx_rem = epoch_plan(generator(SEED, 1, 1), N_FULL, B, BLOCK,
+                                   n_rows)
+    jobs = [host_row[np.minimum((np.asarray(i)[:, None] * BLOCK
+                                 + np.arange(BLOCK)).ravel(), n_rows - 1)]
+            for i in list(idx_full) + [idx_rem]]
+    stager = HostStager(dev, B, W, prefetch=1)  # a whole batch a slot
+    pinned = stager._host[0]
+    t_s = time.perf_counter()
+    for job in jobs:
+        stager._gather(packed, job, 0)
+    gather_ms = 1e3 * (time.perf_counter() - t_s) / len(jobs)
+    dev_buf = torch.empty((B, W), dtype=torch.uint8, device=dev)
+    copy_ms = cuda_ms(lambda: dev_buf.copy_(pinned, non_blocking=True), 10)
+    stager.close()
+    dev_buf.copy_(torch.from_numpy(packed[row_order[:B]]))
+    init = qp.init_params(generator(SEED, 0), V.T, P_init, H_FULL, [k],
+                          m_pad)
+    model = qp.params_from_numpy(init, [k], dev)
+    cm = (torch.arange(m_pad, device=dev) < M_FULL).to(torch.float32)
+    no_missing = not packed_has_missing(packed)
+    compute_ms = cuda_ms(step_fn(model, dev_buf, cm,
+                                 torch.ones(B, device=dev), no_missing), 10)
+    del dev_buf, pinned, model
+    print(f"   a streamed step at epoch 1, ms: host gather {gather_ms:.3f} "
+          f"(host clock, {B} rows through the pre-shuffle, "
+          f"{stager.gather_threads} threads; "
+          f"{B * W / gather_ms / 1e6:.2f} GB/s), pinned copy {copy_ms:.3f} "
+          f"({B * W / copy_ms / 1e6:.2f} GB/s), compute (a resident "
+          f"unlogged step) {compute_ms:.3f} (CUDA events); the stager "
+          f"overlaps them, so a step takes at least "
+          f"{max(gather_ms, copy_ms, compute_ms):.3f}")
+
+    # Resume: 2 epochs with a checkpoint every epoch, resumed (streamed) to
+    # 3, against 3 uninterrupted resident epochs.
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "smoke_ckpt.npz")
+        full, _, _, _ = train(3, "default", False)
+        _, first, _, _ = train(2, "default", False, checkpoint_every=1,
+                               checkpoint_path=ck)
+        size = os.path.getsize(ck)
+        with np.load(ck) as f:
+            if bytes(f["format"]).decode() != CKPT_FORMAT or \
+                    int(f["epoch"]) != 2:
+                raise AssertionError("checkpoint format or epoch")
+        resumed, second, counts, _ = train(3, "default", True,
+                                           checkpoint_every=1,
+                                           checkpoint_path=ck, resume=True)
+    if not same_run(resumed, full):
+        raise AssertionError("resumed run differs from the uninterrupted one")
+    print(f"   resume: 2 resident epochs, checkpoint every epoch, resumed "
+          f"streamed to 3 = 3 uninterrupted resident epochs bit for bit; "
+          f"checkpoint {size / 1e6:.1f} MB, save "
+          f"{first.phase_seconds['save']:.3f} s, load "
+          f"{second.phase_seconds['load']:.3f} s (host clock); "
+          f"the resumed epoch's launches "
+          + ", ".join(f"{n} {c}" for n, c in counts.items() if c))
+
+    # The streamed set-up against phase 6's resident one.
+    t_s = time.perf_counter()
+    V_s = rsvd(packed, N_FULL, M_FULL, D_FULL, SEED, device=dev, stream=True)
+    rsvd_s = time.perf_counter() - t_s
+    if not np.array_equal(V_s, V):
+        raise AssertionError("streamed RSVD differs from the resident one")
+    t_s = time.perf_counter()
+    x_s = project_pca(packed, V, N_FULL, device=dev, stream=True)
+    torch.cuda.synchronize()
+    pca_s = time.perf_counter() - t_s
+    if not torch.equal(x_s, trained["x_pca"]):
+        raise AssertionError("streamed PCA projection differs from the "
+                             "resident one")
+    setup = trained["setup"]
+    print(f"   streamed set-up = resident bit for bit: RSVD {rsvd_s:.3f} s "
+          f"(resident {setup['RSVD']:.3f} s), PCA projection {pca_s:.3f} s "
+          f"(resident {setup['PCA']:.3f} s), host clock")
+    done(t)
+    return streamed_counts
+
+
 def phase_cli_train(dev):
     """``train`` on the demo BED through the CLI, on the card and on the
     CPU, for one K, a K range and supervised mode: the output files, one
@@ -1484,7 +1849,75 @@ def phase_cli_train(dev):
                       f"5e-4 (rule: max|d| <= 0.02, <= 0.5%); Q max|d| "
                       f"{np.abs(Q_gpu - Q_cpu).max():.3e}; log-likelihood "
                       f"{ll_g:,.1f} vs {ll_c:,.1f}")
+        cli_stream_and_preempt(d)
     done(t)
+
+
+def cli_stream_and_preempt(d):
+    """On the card: ``train --stream 1`` writes the .Q and .P that the
+    resident run (``k7_gpu``, --stream auto) wrote, byte for byte; a
+    ``--checkpoint_every`` run sent SIGTERM after its first checkpoint
+    exits 143 with the log line, and its ``--resume`` finishes with rc 0."""
+    def cli(*flags):
+        return [sys.executable, "-u", "-m", "neural_admixture_tpu_torch.entry",
+                "train", "--data_path", DEMO_BED, "--save_dir", d,
+                "--num_gpus", "1", "--no_progress", *flags]
+
+    t_cli = time.perf_counter()
+    r = subprocess.run(cli("--k", "7", "--name", "k7_stream", "--epochs", "5",
+                           "--seed", "42", "--stream", "1"),
+                       cwd=REPO, check=True, capture_output=True, text=True)
+    if "Host-streaming (out-of-core) training" not in r.stdout:
+        raise AssertionError("--stream 1 did not stream")
+    for m in ("Q", "P"):
+        with open(os.path.join(d, f"k7_stream.7.{m}"), "rb") as fa, \
+                open(os.path.join(d, f"k7_gpu.7.{m}"), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"--stream 1 wrote another .{m}")
+    print(f"   train K=7 --stream 1 --num_gpus 1: "
+          f"{time.perf_counter() - t_cli:.1f} s; .7.Q and .7.P byte for byte "
+          f"those of --stream auto (resident)")
+
+    epochs = 300
+    pre = cli("--k", "2", "--name", "pre", "--epochs", str(epochs), "--seed",
+              "3", "--batch_size", "64", "--hidden_size", "32",
+              "--checkpoint_every", "5")
+    ckpt = os.path.join(d, "pre_ckpt.npz")
+    t_cli = time.perf_counter()
+    p = subprocess.Popen(pre, cwd=REPO, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 300
+        while not os.path.exists(ckpt) and time.time() < deadline:
+            if p.poll() is not None:
+                raise AssertionError("the run ended before its first "
+                                     "checkpoint:\n" + p.communicate()[0])
+            time.sleep(0.02)
+        p.send_signal(signal.SIGTERM)
+        out = p.communicate(timeout=300)[0]
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    if p.returncode != 143 or "SIGTERM received: resumable checkpoint " \
+            "saved at epoch" not in out:
+        raise AssertionError(f"SIGTERM: exit {p.returncode}\n{out[-3000:]}")
+    with np.load(ckpt) as f:
+        stopped = int(f["epoch"])
+    secs = time.perf_counter() - t_cli
+    t_cli = time.perf_counter()
+    r = subprocess.run(pre + ["--resume"], cwd=REPO, capture_output=True,
+                       text=True)
+    if r.returncode != 0 or f"Resuming from epoch {stopped}." not in r.stdout:
+        raise AssertionError(f"--resume: exit {r.returncode}\n"
+                             f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+    Q = np.loadtxt(os.path.join(d, "pre.2.Q"))
+    if Q.shape != (105, 2) or not np.allclose(Q.sum(1), 1.0, atol=1e-5):
+        raise AssertionError("resumed run: bad Q")
+    print(f"   train K=2 --checkpoint_every 5 --num_gpus 1, SIGTERM after "
+          f"the first checkpoint: exit 143 at epoch {stopped} of {epochs} "
+          f"({secs:.1f} s); --resume: rc 0, resumed from epoch {stopped} "
+          f"({time.perf_counter() - t_cli:.1f} s)")
 
 
 def step_fn(model, xb, cm, rw, no_missing, logged=False, merged=True):
@@ -1638,7 +2071,7 @@ def phase_ab(dev, parent_dir, parent_build, logs):
 
 
 PHASES = ("env", "build", "kernels", "infer", "cli_infer", "train",
-          "multihead", "cli_train")
+          "multihead", "stream", "cli_train")
 
 
 def parse_args(argv):
@@ -1647,7 +2080,7 @@ def parse_args(argv):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated phases to run, in their fixed "
                     "order (default: all): " + ", ".join(PHASES) + "; "
-                    "train needs infer, multihead needs train")
+                    "train needs infer, multihead and stream need train")
     ap.add_argument("--ab", default=None, metavar="DIR",
                     help="also time the kernels built from DIR (a copy of "
                     "another commit's csrc/, e.g. the parent's unpacked "
@@ -1658,13 +2091,15 @@ def parse_args(argv):
     bad = sorted(set(args.phases) - set(PHASES))
     if bad:
         ap.error(f"unknown phases {bad}; choose from {list(PHASES)}")
-    for need, what in (("infer", "train"), ("train", "multihead")):
+    for need, what in (("infer", "train"), ("train", "multihead"),
+                       ("train", "stream")):
         if what in args.phases and need not in args.phases:
             ap.error(f"phase {what} needs phase {need}")
     return args
 
 
 def main(argv=None):
+    t_run = time.perf_counter()
     args = parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1693,10 +2128,12 @@ def main(argv=None):
     if "cli_infer" in run:
         phase_cli_infer()
     if "train" in run:
-        k_train, V = phase_train(dev, packed)
+        k_train, trained = phase_train(dev, packed)
         kernels += k_train
     if "multihead" in run:
-        kernels += phase_multihead(dev, packed, V)
+        kernels += phase_multihead(dev, packed, trained["V"])
+    if "stream" in run:
+        add_launches(kernels, phase_stream(dev, packed, trained))
     if "infer" in run:
         del packed
     if "cli_train" in run:
@@ -1704,6 +2141,8 @@ def main(argv=None):
     if parent_build is not None:
         phase_ab(dev, args.ab, parent_build, logs)
 
+    print(f"chip_smoke: phases {','.join(args.phases)} passed in "
+          f"{time.perf_counter() - t_run:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,14 @@
 The flag surface of the JAX package's CLI, with YAML config-file support
 (``--config file.yaml``). Ported so far, on a PLINK BED and one device:
 ``train`` with one K (``--k``) or a K range (``--min_k``/``--max_k``, one
-head per K), unsupervised or supervised (``--pops_path``, one K), and
-``infer``. Both run on the card by default (``--num_gpus 1``);
-``--num_gpus 0`` asks for the CPU, and ``--mesh 1x1`` is that one device.
-Every flag of the JAX package parses; those outside the ported slice
-(``--num_gpus > 1``, a larger ``--mesh``, ``--cv``, ``--init_restarts >
-1``, checkpoints, ``--stream 1``, ``--profile_dir``) raise "not ported yet"
-with the ROADMAP.md item that ports them. The JAX
+head per K), unsupervised or supervised (``--pops_path``, one K), with
+resumable checkpoints (``--checkpoint_every``, ``--resume``) and host
+streaming (``--stream``), and ``infer``. Both run on the card by default
+(``--num_gpus 1``); ``--num_gpus 0`` asks for the CPU, and ``--mesh 1x1``
+is that one device. Every flag of the JAX package parses; those outside the
+ported slice (``--num_gpus > 1``, a larger ``--mesh``, ``--cv``,
+``--init_restarts > 1``, ``--profile_dir``) raise "not ported yet" with the
+ROADMAP.md item that ports them. The JAX
 package's environment variables ``NA_TPU_INDEXED``, ``NA_TPU_SPLIT_LOSS``
 and ``NA_TPU_FORCE_MASKED`` choose the training program
 (train/engine.py).
@@ -171,9 +172,11 @@ def parse_train_args(argv: List[str]) -> argparse.Namespace:
                         "shuffling).")
     parser.add_argument("--stream", required=False, default="auto",
                         choices=("auto", "0", "1"),
-                        help="Host-streaming (out-of-core) training; 'auto' "
-                        "and 0 keep the packed rows resident on the device, "
-                        "1 is not ported yet.")
+                        help="Host-streaming (out-of-core) training: 1 "
+                        "keeps the packed rows in host memory and streams "
+                        "every batch and block to the device; 0 keeps them "
+                        "resident on the device; 'auto' streams only when "
+                        "they do not fit.")
     parser.add_argument("--init_restarts", required=False, default=1,
                         type=int, help="Independently seeded runs, the best "
                         "kept by log-likelihood; more than 1 is not ported "
@@ -189,11 +192,13 @@ def parse_train_args(argv: List[str]) -> argparse.Namespace:
                         type=str, help="Profiler trace directory; not ported "
                         "yet.")
     parser.add_argument("--checkpoint_every", required=False, default=0,
-                        type=int, help="Save a resumable checkpoint every N "
-                        "epochs (0 = off); not ported yet.")
+                        type=int, help="Save a resumable checkpoint "
+                        "({save_dir}/{name}_ckpt.npz) every N epochs (0 = "
+                        "off); then SIGTERM saves one at the next epoch and "
+                        "exits 143.")
     parser.add_argument("--resume", action="store_true",
-                        help="Resume from the checkpoint in save_dir; not "
-                        "ported yet.")
+                        help="Resume from the checkpoint in save_dir when "
+                        "there is one.")
     _apply_yaml_defaults(parser, argv)
     return parser.parse_args(argv)
 

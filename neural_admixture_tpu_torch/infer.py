@@ -2,7 +2,9 @@
 
 Load ``{name}_config.json`` and the decoder-stripped weights (``.npz``, or a
 reference-format ``.pt``), run the encoder over the packed rows in batches
-(xv kernel -> encoder), and write ``{out_name}.{K}.Q``.
+(xv kernel -> encoder), and write ``{out_name}.{K}.Q``. The batches leave
+host memory through the stager (io/stage.py): gathered into a pinned ring,
+copied on a side stream while the previous batch computes.
 """
 import time
 from pathlib import Path

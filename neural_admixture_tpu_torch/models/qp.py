@@ -16,7 +16,7 @@ sorted ks; ``decoders.k{K}`` for P), so a reference ``.pt`` loads with
 ``.npz`` checkpoints (kernels stored (in, out), ``decoders`` (k, M)) moves
 in and out through :func:`params_from_numpy` and :func:`params_to_numpy`.
 """
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -140,22 +140,47 @@ def params_from_numpy(params: Dict, ks: List[int], device=None) -> QPEncoder:
     return model
 
 
+def param_layout(model: QPEncoder) -> List[Tuple[str, nn.Parameter, bool]]:
+    """(name in the JAX package's layout, "/"-separated, the parameter,
+    whether that layout holds it transposed), for every parameter: V,
+    rmsnorm/weight, common/kernel and bias, heads/k{K}/kernel and bias and,
+    for a QPModel, decoders/k{K}."""
+    common = model.common_encoder[0]
+    out = [("V", model.V, False),
+           ("rmsnorm/weight", model.batch_norm.weight, False),
+           ("common/kernel", common.weight, True),
+           ("common/bias", common.bias, False)]
+    for hk, head in zip(head_keys(model.ks), model.multihead_encoder.heads):
+        out += [(f"heads/{hk}/kernel", head.weight, True),
+                (f"heads/{hk}/bias", head.bias, False)]
+    if isinstance(model, QPModel):
+        out += [(f"decoders/{hk}", P, False)
+                for hk, P in model.decoders.items()]
+    return out
+
+
+def to_layout(t: torch.Tensor, transpose: bool) -> np.ndarray:
+    """A tensor as a host fp32 array in the JAX package's layout."""
+    t = t.detach().to("cpu", torch.float32)
+    return (t.T if transpose else t).contiguous().numpy()
+
+
+def from_layout(a: np.ndarray, transpose: bool) -> torch.Tensor:
+    """The inverse of :func:`to_layout`, a contiguous CPU tensor."""
+    a = np.asarray(a, np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a.T if transpose else a))
+
+
 def params_to_numpy(model: QPEncoder) -> Dict:
     """The inverse of :func:`params_from_numpy`: the JAX package's layout,
     as host numpy arrays."""
-    def a(t, transpose=False):
-        t = t.detach().to("cpu", torch.float32)
-        return (t.T if transpose else t).contiguous().numpy()
-
-    out = {"V": a(model.V),
-           "rmsnorm": {"weight": a(model.batch_norm.weight)},
-           "common": {"kernel": a(model.common_encoder[0].weight, True),
-                      "bias": a(model.common_encoder[0].bias)},
-           "heads": {hk: {"kernel": a(head.weight, True), "bias": a(head.bias)}
-                     for hk, head in zip(head_keys(model.ks),
-                                         model.multihead_encoder.heads)}}
-    if isinstance(model, QPModel):
-        out["decoders"] = {hk: a(P) for hk, P in model.decoders.items()}
+    out: Dict = {}
+    for name, p, transpose in param_layout(model):
+        *path, leaf = name.split("/")
+        d = out
+        for key in path:
+            d = d.setdefault(key, {})
+        d[leaf] = to_layout(p, transpose)
     return out
 
 

@@ -10,12 +10,14 @@ Missing genotypes ARE masked here, unlike in the training loss.
 :func:`loglikelihood` is the host float64 formula; :func:`loglikelihood_packed`
 feeds it from 2-bit packed rows, and above ``device_threshold`` genotypes
 evaluates fp32 blocks on a device instead, accumulated in float64 on the
-host.
+host; the blocks reach the device through the stager (io/stage.py), so the
+whole packed matrix is never uploaded.
 """
 import numpy as np
 import torch
 
 from ..io.packed import unpack_2bit_rows
+from ..io.stage import PackedRows
 from .pack import unpack_genotypes
 from .rsvd import block_rows_for
 
@@ -57,21 +59,21 @@ def loglikelihood_packed(packed: np.ndarray, M: int, P, Q,
 
     Up to ``device_threshold`` N*M genotypes, row blocks are unpacked on the
     host and reduced in float64 (the formula of :func:`loglikelihood`).
-    Above it, blocks of about 1 GB of fp32 are unpacked and reduced in fp32
-    on ``device`` (default: the CPU), each block's sum added in float64 on
-    the host."""
+    Above it, blocks of about 1 GB of fp32 are streamed to ``device``
+    (default: the CPU), unpacked and reduced there in fp32, each block's sum
+    added in float64 on the host."""
     N = np.shape(Q)[0]
     packed = np.asarray(packed)
     if N * M > device_threshold:
-        device = device or torch.device("cpu")
-        pk = torch.from_numpy(packed).to(device)
-        P32 = torch.from_numpy(np.asarray(P, np.float32)).to(device)
-        Q32 = torch.from_numpy(np.asarray(Q, np.float32)).to(device)
-        rows = block_rows_for(4 * pk.shape[1], 1 << 30)
+        src = PackedRows(packed, N, block_rows_for(4 * packed.shape[1],
+                                                   1 << 30),
+                         device, stream=True)
+        P32 = torch.from_numpy(np.asarray(P, np.float32)).to(src.device)
+        Q32 = torch.from_numpy(np.asarray(Q, np.float32)).to(src.device)
         total = 0.0
-        for i in range(0, N, rows):
-            g = unpack_genotypes(pk[i:i + rows])[:, :M]
-            total += _device_block(g, P32, Q32[i:i + rows], eps)
+        for i, blk in src.blocks():
+            g = unpack_genotypes(blk)[:, :M]
+            total += _device_block(g, P32, Q32[i:i + blk.shape[0]], eps)
         return total
     P = np.asarray(P, np.float64)
     Q = np.asarray(Q, np.float64)

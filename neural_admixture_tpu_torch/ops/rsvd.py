@@ -12,10 +12,17 @@ over unpacked row blocks of about ``block_bytes`` of fp32 each (blocked by
 bytes, not rows: 4096 rows at M = 1M would be a 16 GB block); the (N, k')
 QR and the (k', M) SVD run on the host in NumPy, as in the JAX package.
 Results do not depend on the block size except for fp32 summation order.
+
+Host streaming (the JAX package's ``stream``, ops/rsvd.py:51-63 and
+:98-199): the packed rows stay in host memory and every product reads its
+row blocks through the stager (io/stage.py), 2 + 2 * power_iterations
+passes. The blocks, their order and the fp32 accumulation are the resident
+path's, so a streamed V equals the resident V exactly.
 """
 import numpy as np
 import torch
 
+from ..io.stage import PackedRows
 from .pack import unpack_genotypes
 
 
@@ -34,21 +41,29 @@ def block_rows_for(m_pad: int, block_bytes: int) -> int:
     return max(1, block_bytes // max(1, 4 * m_pad))
 
 
-def _genotype_block(packed: torch.Tensor, i: int, rows: int) -> torch.Tensor:
-    return unpack_genotypes(packed[i:i + rows]).to(torch.float32)
+def resident_bytes(n: int, W: int, k: int, oversampling: int = 10) -> int:
+    """The JAX package's device footprint of a resident RSVD (its
+    ops/rsvd.py:126-133): the packed rows plus the (m_pad, k') Omega and
+    the (n, k') sketch."""
+    kp = max(k + oversampling, 20)
+    return n * W + (W * 4 + n) * kp * 4
 
 
-def rsvd(packed: torch.Tensor, N: int, M: int, k: int = 8, seed: int = 42,
+def rsvd(packed, N: int, M: int, k: int = 8, seed: int = 42,
          oversampling: int = 10, power_iterations: int = 2,
-         block_bytes: int = 1 << 30) -> np.ndarray:
+         block_bytes: int = 1 << 30, device=None, stream=None) -> np.ndarray:
     """Randomized SVD of the packed genotypes. Returns Vt_k (k, M) float32.
 
-    ``packed``: (N, W) uint8 tensor, on the device that runs the products
-    (padding columns are genotype 0 and add nothing)."""
-    dev = packed.device
+    ``packed``: (N, W) uint8 (padding columns are genotype 0 and add
+    nothing): a tensor on the device that runs the products, or a host
+    array, whose products run on ``device`` (default the CPU): streamed
+    with ``stream``, uploaded once without it; ``stream=None`` streams when
+    :func:`resident_bytes` would not fit (utils/hbm.py)."""
     W = packed.shape[1]
     m_pad = 4 * W
-    rows = block_rows_for(m_pad, block_bytes)
+    src = PackedRows(packed, N, block_rows_for(m_pad, block_bytes), device,
+                     stream, resident_bytes(N, W, k, oversampling))
+    dev = src.device
     k_prime = max(k + oversampling, 20)
     rng = np.random.default_rng(seed)
     Omega = np.zeros((m_pad, k_prime), np.float32)
@@ -57,15 +72,17 @@ def rsvd(packed: torch.Tensor, N: int, M: int, k: int = 8, seed: int = 42,
     def A_omega(Om: np.ndarray) -> np.ndarray:
         Om_d = torch.from_numpy(np.ascontiguousarray(Om)).to(dev)
         Y = torch.empty(N, Om.shape[1], dtype=torch.float32, device=dev)
-        for i in range(0, N, rows):
-            Y[i:i + rows] = _genotype_block(packed, i, rows) @ Om_d
+        for i, blk in src.blocks():
+            Y[i:i + blk.shape[0]] = unpack_genotypes(blk).to(
+                torch.float32) @ Om_d
         return Y.cpu().numpy()
 
     def Qt_A(Q: np.ndarray) -> np.ndarray:
         Qt = torch.from_numpy(np.ascontiguousarray(Q.T)).to(dev)
         B = torch.zeros(Q.shape[1], m_pad, dtype=torch.float32, device=dev)
-        for i in range(0, N, rows):
-            B += Qt[:, i:i + rows] @ _genotype_block(packed, i, rows)
+        for i, blk in src.blocks():
+            B += Qt[:, i:i + blk.shape[0]] @ unpack_genotypes(blk).to(
+                torch.float32)
         return B.cpu().numpy()
 
     Y = A_omega(Omega)

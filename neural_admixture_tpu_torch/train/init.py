@@ -17,41 +17,52 @@ Supervised (one K): the labels, sorted by name, become 0..K-1
 (:func:`encode_populations`), and P_k's row c is the mean RAW code of the
 rows labelled c, missing (3) included, as the reference does
 (:func:`init_p_supervised_packed`, on the packed rows' device).
+
+The packed rows are a tensor on the device that computes, or a host array
+with that ``device``: uploaded once, or with ``stream`` read block by block
+through the stager (io/stage.py; the JAX package's host-streamed
+projection, train/init.py:46-89); ``stream=None`` streams when the packed
+rows would not fit the device (its estimate, train/init.py:63). The blocks
+and their order do not change with ``stream``, so neither does any result.
 """
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..io.stage import PackedRows
 from ..ops.gmm import fit_gmm
 from ..ops.pack import unpack_genotypes
 from ..ops.rsvd import block_rows_for
 from ..utils.seeding import generator
 
 
-def project_pca(packed: torch.Tensor, V: np.ndarray, N: int,
-                block_bytes: int = 1 << 30) -> torch.Tensor:
-    """(N, D) = (G/2) @ V^T of the packed rows (N, W) uint8 and V (D, M)."""
-    dev = packed.device
+def project_pca(packed, V: np.ndarray, N: int, block_bytes: int = 1 << 30,
+                device=None, stream=None) -> torch.Tensor:
+    """(N, D) = (G/2) @ V^T of the packed rows (N, W) uint8 and V (D, M),
+    on the packed rows' device (``device`` for a host array)."""
     m_pad = 4 * packed.shape[1]
+    src = PackedRows(packed, N, block_rows_for(m_pad, block_bytes), device,
+                     stream)
+    dev = src.device
     V = np.asarray(V, np.float32)
     Vt = torch.zeros(m_pad, V.shape[0], dtype=torch.float32, device=dev)
     Vt[:V.shape[1]] = torch.from_numpy(np.ascontiguousarray(V.T)).to(dev)
-    rows = block_rows_for(m_pad, block_bytes)
     out = torch.empty(N, V.shape[0], dtype=torch.float32, device=dev)
-    for i in range(0, N, rows):
-        A = unpack_genotypes(packed[i:i + rows]).to(torch.float32) * 0.5
-        out[i:i + rows] = A @ Vt
+    for i, blk in src.blocks():
+        A = unpack_genotypes(blk).to(torch.float32) * 0.5
+        out[i:i + blk.shape[0]] = A @ Vt
     return out
 
 
-def init_p_unsupervised(packed: torch.Tensor, V: np.ndarray, N: int, M: int,
+def init_p_unsupervised(packed, V: np.ndarray, N: int, M: int,
                         ks: List[int], seed: int,
-                        x_pca: Optional[torch.Tensor] = None) -> np.ndarray:
+                        x_pca: Optional[torch.Tensor] = None, device=None,
+                        stream=None) -> np.ndarray:
     """GMM-based P init: (sum(ks), M) float32, rows per K ascending.
     ``x_pca``: precomputed :func:`project_pca` coordinates."""
     if x_pca is None:
-        x_pca = project_pca(packed, V, N)
+        x_pca = project_pca(packed, V, N, device=device, stream=stream)
     X = x_pca.detach().to("cpu", torch.float32)
     Vh = torch.from_numpy(np.asarray(V, np.float32))  # (D, M)
     blocks = []
@@ -74,24 +85,26 @@ def encode_populations(pops: Sequence[str], K: int
     return np.asarray([ancestry[p] for p in pops], dtype=np.int64), ancestry
 
 
-def init_p_supervised_packed(packed: torch.Tensor, y: np.ndarray, K: int,
-                             M: int, block_bytes: int = 1 << 30
-                             ) -> np.ndarray:
+def init_p_supervised_packed(packed, y: np.ndarray, K: int, M: int,
+                             block_bytes: int = 1 << 30, device=None,
+                             stream=None) -> np.ndarray:
     """(K, M) float32: row c is the mean raw code (0..3, missing 3
     included) over the packed rows (N, W) uint8 labelled c by ``y`` (N,).
 
-    Runs on ``packed``'s device in row blocks of about ``block_bytes`` of
-    fp64 codes. The per-class sums are fp64 adds of small integers
-    (``index_add_``), exact in any order and free of the TF32 setting."""
-    dev = packed.device
+    Runs on the packed rows' device (``device`` for a host array) in row
+    blocks of about ``block_bytes`` of fp64 codes. The per-class sums are
+    fp64 adds of small integers (``index_add_``), exact in any order and
+    free of the TF32 setting."""
+    N = len(y)
+    src = PackedRows(packed, N, block_bytes // (8 * 4 * packed.shape[1]),
+                     device, stream)
+    dev = src.device
     y_t = torch.as_tensor(np.asarray(y, np.int64), device=dev)
-    N = y_t.shape[0]
     sums = torch.zeros(K, 4 * packed.shape[1], dtype=torch.float64,
                        device=dev)
-    rows = max(1, block_bytes // (8 * 4 * packed.shape[1]))
-    for i in range(0, N, rows):
-        codes = unpack_genotypes(packed[i:min(i + rows, N)])
-        sums.index_add_(0, y_t[i:i + rows], codes.to(torch.float64))
+    for i, blk in src.blocks():
+        sums.index_add_(0, y_t[i:i + blk.shape[0]],
+                        unpack_genotypes(blk).to(torch.float64))
     counts = torch.bincount(y_t, minlength=K).to(torch.float64)
     means = sums[:, :M] / torch.clamp_min(counts[:, None], 1.0)
     return means.to(torch.float32).cpu().numpy()

@@ -3,11 +3,15 @@
 The JAX package's train/run.py ``main_train`` for the ported slice: a
 PLINK BED on one device, one K (``--k``) or a K range (``--min_k`` ..
 ``--max_k``, one head per K, trained jointly), unsupervised or supervised
-(``--pops_path``, one K). The packed rows go to the device once and every
-consumer (RSVD, PCA projection or the supervised means, training, the Q
-pass) reads them there; the (N, M) genotype matrix never exists.
-Everything else raises NotImplementedError naming the ROADMAP.md item that
-ports it.
+(``--pops_path``, one K), with resumable checkpoints
+(``--checkpoint_every``, ``--resume``, SIGTERM) and host streaming
+(``--stream``). Resident, the packed rows go to the device once for the
+RSVD and the P init and once more for training; streamed (``--stream 1``,
+or ``auto`` when they do not fit), no phase uploads the whole packed
+matrix: the RSVD, the PCA projection or the supervised means, training,
+the Q pass and the log-likelihood read it block by block through the stager
+(io/stage.py). The (N, M) genotype matrix never exists. Everything else
+raises NotImplementedError naming the ROADMAP.md item that ports it.
 """
 import time
 from pathlib import Path
@@ -19,7 +23,8 @@ from ..infer import read_packed, select_device
 from ..io.torch_interop import save_pt_checkpoint
 from ..io.writers import save_checkpoint, save_config, write_outputs
 from ..ops.loglikelihood import loglikelihood_packed
-from ..ops.rsvd import rsvd
+from ..ops.rsvd import resident_bytes, rsvd
+from ..utils.hbm import should_stream_host
 from ..utils.logger import log, setup_logging
 from .engine import NeuralAdmixtureTrainer, TrainConfig
 from .init import (encode_populations, init_p_supervised_packed,
@@ -48,12 +53,6 @@ def check_ported(args) -> None:
     if int(args.init_restarts or 1) > 1:
         raise _not_ported("--init_restarts > 1", "13 (CV, restarts and the "
                           "bench)")
-    if args.checkpoint_every or args.resume:
-        raise _not_ported("--checkpoint_every/--resume", "9 "
-                          "(checkpoint/resume and preemption)")
-    if STREAM_MAP[stream]:
-        raise _not_ported("--stream 1 (host streaming)", "10 (host "
-                          "streaming)")
     if args.profile_dir:
         raise _not_ported("--profile_dir (a profiler trace of the epochs)",
                           "13 (CV, restarts and the bench)")
@@ -78,7 +77,9 @@ def main_train(args, t0: float) -> int:
         ks = list(range(min_k, max_k + 1))
     device = select_device(int(args.num_gpus), getattr(args, "mesh", None),
                            "training")
-    packed, N, M = read_packed(args.data_path)
+    stream = STREAM_MAP[getattr(args, "stream", "auto")]
+    packed, N, M = read_packed(args.data_path)  # a BED: others raise
+    log.info("    Input format is BED.")
     log.info(f"    Data contains {N} samples and {M} SNPs.")
     y_num = None
     if args.pops_path:
@@ -89,27 +90,38 @@ def main_train(args, t0: float) -> int:
             raise ValueError(f"Population file has {len(pops)} labels but "
                              f"the data has {N} samples.")
         y_num, _ = encode_populations(pops, K)
-    packed_dev = torch.from_numpy(packed).to(device)
+    # The RSVD and the P init share one upload, or stream (auto: by the
+    # RSVD's estimate, the larger of the two).
+    setup_stream = stream if stream is not None else should_stream_host(
+        resident_bytes(N, packed.shape[1], int(args.n_components)),
+        device=device)
+    rows = packed if setup_stream else torch.from_numpy(packed).to(device)
 
     log.info("")
     log.info("    Running SVD...")
     log.info("")
     t_svd = time.time()
-    V = rsvd(packed_dev, N, M, int(args.n_components), int(args.seed))
+    V = rsvd(rows, N, M, int(args.n_components), int(args.seed),
+             device=device, stream=setup_stream)
     log.info(f"    Total time SVD: {time.time() - t_svd:.4f}s")
     log.info("")
     if y_num is not None:
         log.info("")
         log.info("    Running Supervised Mode...")
         log.info("")
-        P_init = init_p_supervised_packed(packed_dev, y_num, K, M)
+        P_init = init_p_supervised_packed(rows, y_num, K, M, device=device,
+                                          stream=setup_stream)
     else:
         log.info("")
         log.info("    Running Gaussian Mixture in PCA subspace...")
         log.info("")
-        P_init = init_p_unsupervised(packed_dev, V, N, M, ks, int(args.seed))
-    del packed_dev
+        P_init = init_p_unsupervised(rows, V, N, M, ks, int(args.seed),
+                                     device=device, stream=setup_stream)
+    del rows
 
+    checkpoint_every = int(args.checkpoint_every or 0)
+    if checkpoint_every or args.resume:
+        Path(args.save_dir).mkdir(parents=True, exist_ok=True)
     cfg = TrainConfig(
         epochs=int(args.epochs), batch_size=int(args.batch_size),
         learning_rate=float(args.learning_rate), seed=int(args.seed),
@@ -117,7 +129,10 @@ def main_train(args, t0: float) -> int:
         n_components=int(args.n_components), ks=ks,
         supervised_loss_weight=float(args.supervised_loss_weight),
         progress=not args.no_progress,
-        sample_block=int(args.sample_block or 1), device=str(device))
+        sample_block=int(args.sample_block or 1), device=str(device),
+        stream=stream, checkpoint_every=checkpoint_every,
+        checkpoint_path=str(Path(args.save_dir) / f"{args.name}_ckpt.npz"),
+        resume=bool(args.resume))
     trainer = NeuralAdmixtureTrainer(cfg)
     Qs, Ps, params = trainer.launch_training(P_init, packed, V, M, N,
                                              pops=y_num)

@@ -159,7 +159,7 @@ def test_infer_q_never_falls_back_to_cpu(monkeypatch):
 
 @pytest.mark.parametrize("argv,match", [
     (["train", "--k", "3", "--save_dir", "s", "--data_path", "d.bed",
-      "--name", "m", "--stream", "1"], "item 10"),
+      "--name", "m", "--init_restarts", "2"], "item 13"),
     (["infer", "--num_gpus", "2"], "item 12"),
     (["infer", "--num_gpus", "0", "--mesh", "2x1"], "item 12"),
 ])

@@ -376,6 +376,19 @@ def test_cli_train_on_demo_bed(tmp_path):
     np.testing.assert_allclose(Qi, Q, rtol=1e-4, atol=1e-6)
 
 
+def test_cli_train_logs_the_input_format(tmp_path, caplog):
+    """The JAX package's train/run.py:162-169: "Input format is BED." just
+    before the "Data contains" line."""
+    argv = ["train", "--k", "3", "--data_path", DEMO_BED, "--save_dir",
+            str(tmp_path), "--name", "fmt", "--epochs", "1", "--seed", "42",
+            "--num_gpus", "0", "--no_progress"]
+    caplog.set_level(logging.INFO)
+    assert tentry.main(argv) == 0
+    lines = [r.getMessage() for r in caplog.records]
+    i = lines.index("    Input format is BED.")
+    assert lines[i + 1] == "    Data contains 105 samples and 8451 SNPs."
+
+
 def test_cli_train_on_card_without_cuda_exits_nonzero(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     r = subprocess.run(
@@ -391,9 +404,6 @@ def test_cli_train_on_card_without_cuda_exits_nonzero(tmp_path):
 @pytest.mark.parametrize("extra,match", [
     (["--cv", "3"], "item 13"),
     (["--init_restarts", "2"], "item 13"),
-    (["--checkpoint_every", "2"], "item 9"),
-    (["--resume"], "item 9"),
-    (["--stream", "1"], "item 10"),
     (["--profile_dir", "t"], "item 13"),
     (["--num_gpus", "2"], "item 12"),
     (["--mesh", "2x1"], "item 12"),
@@ -417,10 +427,12 @@ class _PastTheStreamCheck(Exception):
 def test_stream_values_follow_the_jax_package(monkeypatch, tmp_path, stream,
                                               verdict):
     """A --stream value (as a YAML config may give it) gets the JAX
-    package's verdict: outside auto/0/1 a ValueError, 1 "not ported yet"
-    in the port (item 10), else the resident path."""
+    package's verdict: outside auto/0/1 a ValueError, else its trainer's
+    ``stream`` (None, False or True); the port passes check_ported and
+    hands its trainer the same value."""
     from neural_admixture_tpu.train import run as jrun
 
+    from neural_admixture_tpu_torch.train import run as trun
     from neural_admixture_tpu_torch.train.run import check_ported
 
     args = tentry.parse_train_args(
@@ -428,7 +440,7 @@ def test_stream_values_follow_the_jax_package(monkeypatch, tmp_path, stream,
          "--num_gpus", "0", "--k", "3"])
     args.stream = stream
 
-    def stop(**kw):  # the JAX package's stream verdict is in kw["stream"]
+    def stop(**kw):  # the stream verdict is in kw["stream"]
         raise _PastTheStreamCheck(kw["stream"])
 
     monkeypatch.setattr(jrun, "TrainConfig", stop)
@@ -440,11 +452,12 @@ def test_stream_values_follow_the_jax_package(monkeypatch, tmp_path, stream,
     if verdict == "invalid":
         with pytest.raises(ValueError, match="--stream must be auto, 0, or 1"):
             check_ported(args)
-    elif verdict == "streamed":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            check_ported(args)
-    else:
-        check_ported(args)
+        return
+    check_ported(args)
+    monkeypatch.setattr(trun, "TrainConfig", stop)
+    with pytest.raises(_PastTheStreamCheck) as port_exc:
+        trun.main_train(args, 0.0)
+    assert port_exc.value.args[0] is jax_exc.value.args[0]
 
 
 def test_cli_train_mesh_1x1_is_one_device(tmp_path):
