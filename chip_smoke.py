@@ -28,6 +28,18 @@ non-zero exit and no result line:
      kernel, its plain version and each part of a batch; the parent's
      pageable path and a path that registers the host rows with the CUDA
      runtime instead, timed beside it, each with a Q bit-equal to its;
+  4b. readers (host clock, phase 4's rows): the native host library built
+     with g++ (native/build.py); phase 4's rows, flipped, written as a BED,
+     a PGEN of mode 0x01 (the same bytes), 0x02 and 0x10 of storage 8 at
+     full width, each read back by the port's packed reader (storage 8
+     natively and, over its first 65,536 variants, through the pure
+     decoder; the BED natively, and against its NumPy twin on a BED of the
+     first 131,072 variants) byte-equal to phase 4's rows, and infer_q on
+     the storage-8 read's rows with phase 4's Q bit for bit; compressed
+     0x10 and 0x11 PGENs of N=4096 and 2,048 variants of every record type
+     (the port's writer) through the native and the pure decoder, and a
+     VCF of N=4096 and 2,000 of phase 4's variants; the native call
+     counters must move; seconds and GB/s of input of each read;
   5. CLI: a seeded K=7 checkpoint, then ``infer`` on the demo BED on the card
      and on the CPU, compared;
   6. full width: training on phase 4's rows (RSVD, PCA, GMM, P init, two
@@ -53,8 +65,11 @@ non-zero exit and no result line:
      K = 7 Q, which name 5 populations): the output files, the .npz through
      ``infer``, the demo's golden measures, and the two runs held to each
      other by the trajectory rule; on the card ``--stream 1`` writes the
-     resident run's .Q and .P byte for byte, and a ``--checkpoint_every``
-     run sent SIGTERM exits 143 and its ``--resume`` finishes;
+     resident run's .Q and .P byte for byte, a ``--checkpoint_every``
+     run sent SIGTERM exits 143 and its ``--resume`` finishes, and the
+     demo's dosages written as a mode-0x10 PGEN and a VCF train to the BED
+     run's .Q and .P byte for byte (logging "Input format is PGEN." /
+     "VCF.") and ``infer`` on them writes the BED's .Q;
   A/B (only with ``--ab DIR``): the kernels of DIR, a copy of another
      commit's csrc/ with the same C interfaces (the parent's), built into
      DIR/build while the phases run, timed against the checkout's in the
@@ -74,9 +89,11 @@ kernel change); the default is every phase.
 
 Imports nothing of JAX or of the JAX package.
 """
+import contextlib
 import ctypes
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -91,7 +108,8 @@ sys.path.insert(0, REPO)
 
 from neural_admixture_tpu_torch import _build  # noqa: E402
 from neural_admixture_tpu_torch.infer import infer_q  # noqa: E402
-from neural_admixture_tpu_torch.io.packed import pack_2bit_rows  # noqa: E402
+from neural_admixture_tpu_torch.io.packed import (  # noqa: E402
+    pack_2bit_rows, unpack_2bit_rows)
 from neural_admixture_tpu_torch.io.stage import (  # noqa: E402
     HostStager, gather_rows)
 from neural_admixture_tpu_torch.io.writers import (  # noqa: E402
@@ -917,7 +935,289 @@ def phase_infer(dev):
           "batch); Q of (b) bit-equal")
     del blk, pinned, model
     done(t)
+    return packed, params, Q
+
+
+# Per packed byte (4 fields, low bits first): the minor-allele flip
+# (0 <-> 2, 1 and 3 kept), and the PLINK 1 code of each field's dosage
+# (dosage 0 -> 0b11, 1 -> 0b10, 2 -> 0b00, 3 -> 0b01).
+def _byte_lut(field_map):
+    return np.array([sum(field_map[(b >> (2 * i)) & 3] << (2 * i)
+                         for i in range(4)) for b in range(256)], np.uint8)
+
+
+FLIP_CODE = np.array([2, 1, 0, 3], np.uint8)
+FLIP_BYTE = _byte_lut(FLIP_CODE)
+BED_BYTE = _byte_lut([3, 2, 0, 1])
+# Variants of the compressed PGENs (N_FULL samples each) and of the VCF
+# (N_FULL sample columns): the port's PGEN writer tries every record type
+# for each variant (≈ 5 ms a variant at N = 4096) and the VCF parser reads
+# about 1 M fields/s, so these two are cut in variants.
+M_COMPRESSED, M_VCF = 2048, 2000
+# The pure-Python PGEN decoder reads the full-width storage-8 file only this
+# far (it decodes variant by variant); the native one reads all of it. The
+# BED reader's NumPy twin, which took three times native's time on the whole
+# file on an H100's 8-core host, is timed against native on a BED of the
+# first M_TWIN variants.
+PURE_WINDOW = 65536
+M_TWIN = 131072
+GT_TEXT = ("0/0", "0/1", "1/1", "./.")
+
+
+def variant_major(packed_blk):
+    """Sample-major packed rows (N, bw), N a multiple of 4 -> variant-major
+    records (4 bw, N/4): the 2-bit codes of one variant, 4 samples a byte,
+    low bits first (the record layout of PLINK 1 BED and PGEN modes 0x02
+    and storage 8)."""
+    n, bw = packed_blk.shape
+    q = packed_blk.reshape(n // 4, 4, bw)
+    out = np.empty((bw, 4, n // 4), np.uint8)
+    for j in range(4):  # the variant within a packed byte
+        acc = np.zeros((n // 4, bw), np.uint8)
+        for i in range(4):  # the sample within a record byte
+            acc |= ((q[:, i, :] >> (2 * j)) & 3) << (2 * i)
+        out[:, j, :] = acc.T
+    return out.reshape(4 * bw, n // 4)
+
+
+def write_full_width(d, packed, n, m, block_bytes=4096):
+    """The flipped codes of ``packed`` (n, m/4 + padding) as a PLINK BED
+    (.bed/.fam), a PGEN mode 0x01 (the same bytes, hard-linked, and a
+    .psam), a mode-0x02 PGEN and a mode-0x10 PGEN of storage 8, written in
+    one pass over SNP blocks of ``block_bytes`` packed columns. The readers
+    flip them back: the codes are uniform over {0, 1, 2, 3}, so the mean
+    counting missing as 3 is about 1.5 either way."""
+    paths = {"bed": os.path.join(d, "full.bed"),
+             "0x01": os.path.join(d, "full01.pgen"),
+             "0x02": os.path.join(d, "full02.pgen"),
+             "storage8": os.path.join(d, "full8.pgen")}
+    with open(paths["bed"], "wb") as fb, open(paths["0x02"], "wb") as f2, \
+            open(paths["storage8"], "wb") as f8:
+        fb.write(b"\x6c\x1b\x01")
+        dims = np.asarray([m, n], "<u4").tobytes()
+        f2.write(b"\x6c\x1b\x02" + dims)
+        f8.write(b"\x6c\x1b\x10" + dims + bytes([8]))
+        for w0 in range(0, m // 4, block_bytes):
+            rec = variant_major(packed[:, w0:min(w0 + block_bytes, m // 4)])
+            fb.write(BED_BYTE[FLIP_BYTE[rec]].tobytes())
+            flipped = FLIP_BYTE[rec].tobytes()
+            f2.write(flipped)
+            f8.write(flipped)
+    names = "".join(f"s{i}\n" for i in range(n))
+    with open(os.path.join(d, "full.fam"), "w") as fb:
+        fb.write("".join(f"f{i} s{i} 0 0 0 -9\n" for i in range(n)))
+    os.link(paths["bed"], paths["0x01"])
+    with open(os.path.join(d, "full01.psam"), "w") as fb:
+        fb.write("#IID\n" + names)
+    return paths
+
+
+def mixed_genotypes(rng, n, m):
+    """(n, m) dosages whose variants take every PGEN record type in turn:
+    dense random (plain), a few non-reference calls (difflist against hom
+    ref), two common values (onebit), near copies and near inverted copies
+    of the previous variant (LD), a few calls against hom alt and against
+    missing."""
+    G = np.zeros((n, m), np.uint8)
+    for v in range(m):
+        kind = v % 7
+        few = rng.choice(n, size=max(2, n // 200), replace=False)
+        if kind == 0:
+            G[:, v] = rng.integers(0, 4, n)
+        elif kind == 1:
+            G[few, v] = rng.integers(1, 4, few.size)
+        elif kind == 2:
+            G[:, v] = rng.choice([0, 2], n)
+            G[few, v] = rng.integers(1, 4, few.size)
+        elif kind in (3, 4):
+            G[:, v] = G[:, v - 1] if kind == 3 else \
+                np.array([2, 1, 0, 3], np.uint8)[G[:, v - 1]]
+            G[few, v] = rng.integers(0, 4, few.size)
+        elif kind == 5:
+            G[:, v] = 2
+            G[few, v] = rng.integers(0, 2, few.size)
+        else:
+            G[:, v] = 3
+            G[few, v] = rng.integers(0, 3, few.size)
+    return G
+
+
+def write_vcf(path, G):
+    """A VCF of dosages G (n, m): one GT column per sample."""
+    n, m = G.shape
+    with open(path, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                 "FILTER\tINFO\tFORMAT\t"
+                 + "\t".join(f"s{i}" for i in range(n)) + "\n")
+        gt = np.array(GT_TEXT)
+        for v in range(m):
+            fh.write(f"1\t{v + 1}\trs{v}\tA\tG\t.\tPASS\t.\tGT\t"
+                     + "\t".join(gt[G[:, v]]) + "\n")
+
+
+def expected_packed(G, lane=LANE):
+    """What the packed readers return for dosages G (n, m): the biallelic
+    codes flipped when their mean (missing counted as 3) is >= 1, packed
+    and padded to ``lane`` SNPs (io/bed.py read_bed_packed's contract)."""
+    if G.mean() >= 1:
+        G = np.where(G == 3, 3, 2 - G.astype(np.int16)).astype(np.uint8)
+    return pack_2bit_rows(G, m_pad=-(-G.shape[1] // lane) * lane)
+
+
+def timed_read(fn, path, nbytes, want, what):
+    """One read on the host clock; checks the packed rows against ``want``
+    byte for byte and prints seconds and GB/s of input. Returns the rows."""
+    t_s = time.perf_counter()
+    packed, n, m = fn(path)
+    secs = time.perf_counter() - t_s
+    if packed.shape != want.shape or not np.array_equal(packed, want):
+        raise AssertionError(f"{what}: packed rows differ from the expected "
+                             f"ones ({packed.shape} vs {want.shape})")
+    print(f"   {what}: {secs:.3f} s, {nbytes / secs / 1e9:.3f} GB/s of "
+          f"{nbytes / 1e6:.1f} MB input; N={n} M={m}; bytes equal")
     return packed
+
+
+def phase_readers(dev, packed, params, Q_want):
+    """The port's readers (io/bed.py, io/pgen.py, io/pgen_standard.py,
+    io/vcf.py) on files of phase 4's rows, on the host clock."""
+    from unittest import mock
+
+    from neural_admixture_tpu_torch.io.bed import read_bed_packed
+    from neural_admixture_tpu_torch.io.pgen import read_pgen_packed
+    from neural_admixture_tpu_torch.io.pgen_standard import (
+        StandardPgen, write_pgen_standard)
+    from neural_admixture_tpu_torch.io.vcf import read_vcf_packed
+    from neural_admixture_tpu_torch.native import bed_native
+    from neural_admixture_tpu_torch.native import build as native_build
+    t = phase("4b. readers: BED, PGEN 0x01/0x02/0x10/0x11 and VCF into "
+              "packed rows (host clock)")
+    cores = len(os.sched_getaffinity(0))
+    built_before = native_build.lib_path().exists()
+    t_s = time.perf_counter()
+    if not (bed_native.available() and bed_native.pgen_available()):
+        raise AssertionError("the native host library did not build")
+    build_s = time.perf_counter() - t_s
+    lib = os.path.relpath(bed_native.library_path(), REPO)
+    print(f"   native host library ({lib}): "
+          + ("loaded, built before this run" if built_before else
+             f"built with g++ in {build_s:.2f} s")
+          + f"; host: {os.cpu_count()} cores, {cores} usable")
+    n, m = N_FULL, M_FULL
+    rec_bytes = -(-n // 4) * m
+    with tempfile.TemporaryDirectory() as d:
+        t_s = time.perf_counter()
+        paths = write_full_width(d, packed, n, m)
+        print(f"   wrote the BED, PGEN 0x01 (the same bytes), 0x02 and "
+              f"storage-8 0x10 of N={n}, M={m} ({rec_bytes / 1e9:.3f} GB "
+              f"each) in {time.perf_counter() - t_s:.1f} s")
+        bed_native.reset_calls()
+        timed_read(
+            read_bed_packed, paths["bed"], rec_bytes, packed,
+            "BED, native (na_bed_to_packed)")
+        calls = bed_native.call_counts()
+        if calls["bed_to_packed"] == 0:
+            raise AssertionError(f"the BED read made no native call: {calls}")
+        # Native against the NumPy twin on a BED of the first M_TWIN
+        # variants.
+        m_twin = min(M_TWIN, m)
+        twin_bed = os.path.join(d, "twin.bed")
+        with open(paths["bed"], "rb") as fa, open(twin_bed, "wb") as fb:
+            fb.write(fa.read(3 + m_twin * (-(-n // 4))))
+        shutil.copy(os.path.join(d, "full.fam"),
+                    os.path.join(d, "twin.fam"))
+        twin_want = packed[:, :-(-m_twin // LANE) * LANE // 4].copy()
+        twin_want[:, m_twin // 4:] = 0
+        twin_bytes = m_twin * (-(-n // 4))
+        timed_read(read_bed_packed, twin_bed, twin_bytes, twin_want,
+                   f"BED of the first {m_twin} variants, native")
+        calls = bed_native.call_counts()
+        with mock.patch.object(bed_native, "available", lambda: False):
+            timed_read(read_bed_packed, twin_bed, twin_bytes, twin_want,
+                       f"BED of the first {m_twin} variants, NumPy twin")
+        if bed_native.call_counts() != calls:
+            raise AssertionError("the NumPy twin called the library")
+        os.unlink(twin_bed)
+        for mode in ("0x01", "0x02"):
+            timed_read(
+                read_pgen_packed, paths[mode], rec_bytes, packed,
+                f"PGEN {mode} (NumPy, fixed width)")
+        rows = timed_read(
+            read_pgen_packed, paths["storage8"], rec_bytes, packed,
+            "PGEN 0x10 storage 8, native (na_pgen_decode2)")
+        if bed_native.pgen_decode.calls == 0:
+            raise AssertionError("the PGEN read made no native call")
+        # The pure decoder on the first PURE_WINDOW variants: it runs
+        # variant by variant in Python.
+        v1 = min(PURE_WINDOW, m)
+        want_cols = np.ascontiguousarray(
+            unpack_2bit_rows(packed[:, :v1 // 4], v1).T)
+        with mock.patch.object(bed_native, "pgen_available", lambda: False):
+            reader = StandardPgen(paths["storage8"])
+            t_s = time.perf_counter()
+            got = reader.read_block(0, v1)
+            secs = time.perf_counter() - t_s
+        if not np.array_equal(got, FLIP_CODE[want_cols]):
+            raise AssertionError("the pure decoder's storage-8 block differs")
+        print(f"   PGEN 0x10 storage 8, pure decoder, variants [0, {v1}): "
+              f"{secs:.3f} s, {-(-n // 4) * v1 / secs / 1e9:.3f} GB/s "
+              f"(the full file at that rate: {secs * m / v1:.1f} s); codes "
+              "equal")
+
+        t_s = time.perf_counter()
+        (Q_rows,) = infer_q(params, rows, n, [K_FULL], BATCH, dev)
+        torch.cuda.synchronize()
+        if not np.array_equal(Q_rows, Q_want):
+            raise AssertionError("infer_q on the PGEN-read rows gives "
+                                 "another Q than phase 4's")
+        print(f"   infer_q on the rows of the storage-8 read: "
+              f"{time.perf_counter() - t_s:.3f} s; Q bit-equal to phase 4's")
+        del rows, got
+        for path in paths.values():
+            os.unlink(path)
+
+        rng = np.random.default_rng(SEED + 4)
+        Gc = mixed_genotypes(rng, n, M_COMPRESSED)
+        want = expected_packed(Gc)
+        for mode in (0x10, 0x11):
+            path = os.path.join(d, f"c{mode:x}.pgen")
+            t_s = time.perf_counter()
+            vrtypes = write_pgen_standard(path, Gc, mode=mode)
+            size = os.path.getsize(path) + (
+                os.path.getsize(path + ".pgi") if mode == 0x11 else 0)
+            print(f"   wrote a mode-{mode:#04x} PGEN of N={n}, "
+                  f"M={M_COMPRESSED} ({size / 1e6:.2f} MB, record types "
+                  f"{sorted(set(vrtypes))}) with the port's writer in "
+                  f"{time.perf_counter() - t_s:.1f} s")
+            for how in ("native", "pure"):
+                before = bed_native.pgen_decode.calls
+                with contextlib.nullcontext() if how == "native" else \
+                        mock.patch.object(bed_native, "pgen_available",
+                                          lambda: False):
+                    timed_read(
+                        read_pgen_packed, path, size, want,
+                        f"PGEN {mode:#04x}, {how} decoder")
+                if (bed_native.pgen_decode.calls > before) != \
+                        (how == "native"):
+                    raise AssertionError(f"{how}: native calls "
+                                         f"{bed_native.pgen_decode.calls}")
+
+        path = os.path.join(d, "v.vcf")
+        Gv = unpack_2bit_rows(packed[:, :M_VCF // 4], M_VCF)
+        t_s = time.perf_counter()
+        write_vcf(path, FLIP_CODE[Gv])
+        size = os.path.getsize(path)
+        print(f"   wrote a VCF of N={n}, M={M_VCF} ({size / 1e6:.1f} MB) in "
+              f"{time.perf_counter() - t_s:.1f} s")
+        want = expected_packed(FLIP_CODE[Gv])
+        if not np.array_equal(want, packed[:, :want.shape[1]] * (
+                np.arange(want.shape[1]) < M_VCF // 4)):
+            raise AssertionError("the VCF's expected rows are not phase 4's")
+        timed_read(read_vcf_packed, path, size, want,
+                                       "VCF (NumPy parser)")
+    print(f"   native calls: {bed_native.call_counts()}")
+    done(t)
+
 
 
 def host_gather_s(packed, out, threads, reps=3):
@@ -1850,6 +2150,7 @@ def phase_cli_train(dev):
                       f"{np.abs(Q_gpu - Q_cpu).max():.3e}; log-likelihood "
                       f"{ll_g:,.1f} vs {ll_c:,.1f}")
         cli_stream_and_preempt(d)
+        cli_other_formats(d)
     done(t)
 
 
@@ -1918,6 +2219,62 @@ def cli_stream_and_preempt(d):
           f"the first checkpoint: exit 143 at epoch {stopped} of {epochs} "
           f"({secs:.1f} s); --resume: rc 0, resumed from epoch {stopped} "
           f"({time.perf_counter() - t_cli:.1f} s)")
+
+
+def cli_other_formats(d):
+    """On the card: the demo BED's dosages (before the flip) written as a
+    mode-0x10 PGEN with the port's writer and as a VCF; ``train`` on each
+    writes the .Q and .P of the BED run (``k7_gpu``) byte for byte and logs
+    the input format, and ``infer`` of that model on the PGEN and the VCF
+    writes the .Q of ``infer`` on the BED."""
+    from neural_admixture_tpu_torch.io.bed import read_bed
+    from neural_admixture_tpu_torch.io.pgen_standard import (
+        write_pgen_standard)
+    G = read_bed(DEMO_BED)
+    t_s = time.perf_counter()
+    paths = {"PGEN": os.path.join(d, "demo.pgen"),
+             "VCF": os.path.join(d, "demo.vcf")}
+    write_pgen_standard(paths["PGEN"], G)
+    pgen_s = time.perf_counter() - t_s
+    write_vcf(paths["VCF"], G)
+    print(f"   the demo as a mode-0x10 PGEN (port's writer, {pgen_s:.1f} s) "
+          f"and a VCF ({time.perf_counter() - t_s - pgen_s:.1f} s)")
+
+    def cli(*argv):
+        r = subprocess.run([sys.executable, "-m",
+                            "neural_admixture_tpu_torch.entry", *argv,
+                            "--num_gpus", "1"],
+                           cwd=REPO, check=True, capture_output=True,
+                           text=True)
+        return r.stdout
+
+    def same_bytes(a, b):
+        with open(os.path.join(d, a), "rb") as fa, \
+                open(os.path.join(d, b), "rb") as fb:
+            return fa.read() == fb.read()
+
+    cli("infer", "--name", "k7_gpu", "--save_dir", d, "--data_path",
+        DEMO_BED, "--out_name", "inf_BED")
+    for fmt, path in paths.items():
+        t_cli = time.perf_counter()
+        out = cli("train", "--k", "7", "--data_path", path, "--save_dir", d,
+                  "--name", f"k7_{fmt}", "--epochs", "5", "--seed", "42",
+                  "--no_progress")
+        if f"    Input format is {fmt}." not in out.splitlines():
+            raise AssertionError(f"train on the {fmt} did not log its format")
+        for m in ("Q", "P"):
+            if not same_bytes(f"k7_{fmt}.7.{m}", f"k7_gpu.7.{m}"):
+                raise AssertionError(f"train on the {fmt} wrote another .{m}")
+        secs = time.perf_counter() - t_cli
+        t_cli = time.perf_counter()
+        cli("infer", "--name", "k7_gpu", "--save_dir", d, "--data_path",
+            path, "--out_name", f"inf_{fmt}")
+        if not same_bytes(f"inf_{fmt}.7.Q", "inf_BED.7.Q"):
+            raise AssertionError(f"infer on the {fmt} wrote another .Q")
+        print(f"   train K=7 on the {fmt} --num_gpus 1: {secs:.1f} s, logs "
+              f"'Input format is {fmt}.', .7.Q and .7.P byte for byte the "
+              f"BED run's; infer on it: {time.perf_counter() - t_cli:.1f} s, "
+              ".7.Q byte for byte infer on the BED")
 
 
 def step_fn(model, xb, cm, rw, no_missing, logged=False, merged=True):
@@ -2070,8 +2427,8 @@ def phase_ab(dev, parent_dir, parent_build, logs):
     done(t)
 
 
-PHASES = ("env", "build", "kernels", "infer", "cli_infer", "train",
-          "multihead", "stream", "cli_train")
+PHASES = ("env", "build", "kernels", "infer", "readers", "cli_infer",
+          "train", "multihead", "stream", "cli_train")
 
 
 def parse_args(argv):
@@ -2080,7 +2437,8 @@ def parse_args(argv):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated phases to run, in their fixed "
                     "order (default: all): " + ", ".join(PHASES) + "; "
-                    "train needs infer, multihead and stream need train")
+                    "readers and train need infer, multihead and stream "
+                    "need train")
     ap.add_argument("--ab", default=None, metavar="DIR",
                     help="also time the kernels built from DIR (a copy of "
                     "another commit's csrc/, e.g. the parent's unpacked "
@@ -2091,8 +2449,8 @@ def parse_args(argv):
     bad = sorted(set(args.phases) - set(PHASES))
     if bad:
         ap.error(f"unknown phases {bad}; choose from {list(PHASES)}")
-    for need, what in (("infer", "train"), ("train", "multihead"),
-                       ("train", "stream")):
+    for need, what in (("infer", "readers"), ("infer", "train"),
+                       ("train", "multihead"), ("train", "stream")):
         if what in args.phases and need not in args.phases:
             ap.error(f"phase {what} needs phase {need}")
     return args
@@ -2124,7 +2482,9 @@ def main(argv=None):
     if "kernels" in run:
         phase_kernels(dev)
     if "infer" in run:
-        packed = phase_infer(dev)
+        packed, infer_params, infer_Q = phase_infer(dev)
+    if "readers" in run:
+        phase_readers(dev, packed, infer_params, infer_Q)
     if "cli_infer" in run:
         phase_cli_infer()
     if "train" in run:

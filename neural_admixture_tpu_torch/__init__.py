@@ -6,10 +6,11 @@ kernels rewritten by hand as CUDA C++ for Hopper (``csrc/``, built at first
 use by ``_build.py``). It imports neither JAX nor the JAX package; the tests
 hold it against that package on the CPU.
 
-Ported so far, on a PLINK BED and one device: projective inference
-(``infer``) and training (``train``: one K or a K range, unsupervised or
-supervised), through a counterpart of every Pallas kernel of the JAX
-package.
+Ported so far, on one device and every input format of the JAX package
+(PLINK .bed, PGEN, VCF; io/, with the native host decoder of native/):
+projective inference (``infer``) and training (``train``: one K or a K
+range, unsupervised or supervised), through a counterpart of every Pallas
+kernel of the JAX package.
 """
 import torch
 

@@ -1,7 +1,8 @@
 """CLI entry point: ``neural-admixture-tpu-torch {train,infer} ...``.
 
 The flag surface of the JAX package's CLI, with YAML config-file support
-(``--config file.yaml``). Ported so far, on a PLINK BED and one device:
+(``--config file.yaml``). Ported so far, on one device and a PLINK .bed, a
+PGEN or a VCF:
 ``train`` with one K (``--k``) or a K range (``--min_k``/``--max_k``, one
 head per K), unsupervised or supervised (``--pops_path``, one K), with
 resumable checkpoints (``--checkpoint_every``, ``--resume``) and host

@@ -13,6 +13,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .io.snp_reader import exit_unrecognized, input_format
 from .io.torch_interop import load_pt_checkpoint
 from .io.writers import load_checkpoint, load_config, write_outputs
 from .models.qp import head_keys, params_from_numpy
@@ -21,7 +22,7 @@ from .train.chunked import chunked_forward
 from .utils.logger import log, setup_logging
 
 # Lane multiple of V's rows in the JAX package's checkpoints (and of the
-# packed width the BED reader produces).
+# packed width the readers produce).
 _LANE = 2048
 
 
@@ -75,17 +76,20 @@ def infer_q(params, packed: np.ndarray, N: int, ks: List[int],
 
 
 def read_packed(data_path: str):
-    """(packed (N, W) uint8, N, M) of a PLINK .bed; other formats raise."""
-    suffixes = Path(data_path).suffixes
-    if ".bed" in suffixes:
+    """(packed (N, W) uint8, N, M) of a PLINK .bed, a PGEN or a VCF (plain
+    or .gz), by its suffix, through the packed reader of each format;
+    any other suffix logs the reference's error and exits 1."""
+    fmt = input_format(data_path)
+    if fmt == "BED":
         from .io.bed import read_bed_packed
         return read_bed_packed(data_path)
-    if ".pgen" in suffixes or ".vcf" in suffixes:
-        raise NotImplementedError(
-            f"Reading {data_path} is not ported yet: only PLINK .bed is. "
-            "PGEN and VCF are ROADMAP.md Queue 1 item 11 (other readers).")
-    raise ValueError(f"Unrecognized file format: {data_path}. Make sure the "
-                     "file ends with .bed.")
+    if fmt == "PGEN":
+        from .io.pgen import read_pgen_packed
+        return read_pgen_packed(data_path)
+    if fmt == "VCF":
+        from .io.vcf import read_vcf_packed
+        return read_vcf_packed(data_path)
+    exit_unrecognized()
 
 
 def main_infer(args, t0: float) -> int:

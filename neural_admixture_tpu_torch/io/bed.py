@@ -6,8 +6,14 @@ occupies ceil(N/4) bytes, 4 samples per byte, 2 bits per sample, with codes
     0b00 -> 2 (hom. first/A1 allele)   0b01 -> 3 (missing)
     0b10 -> 1 (het.)                   0b11 -> 0 (hom. second/A2 allele)
 
-i.e. the dosage lookup table [2, 3, 1, 0]. Decoding is vectorized NumPy
-through a 256x4 lookup table.
+i.e. the dosage lookup table [2, 3, 1, 0].
+
+Two decode paths give the same bytes:
+  * the native host library (native/bed_native.py, C++ built with g++ at
+    first use), which decodes BED bytes straight into the sample-major
+    2-bit packed layout, or into dense dosages for :func:`read_bed`;
+  * its NumPy twin, a 256x4 lookup table (:func:`decode_bed_numpy`) and
+    io/packed.py's packing, used where the library cannot be built.
 """
 from math import ceil
 from pathlib import Path
@@ -44,11 +50,53 @@ def read_bed_dims(file: str) -> Tuple[int, int]:
     return N, total // n_bytes_per_snp
 
 
+def _check_magic(bed_file: Path) -> None:
+    with open(bed_file, "rb") as bed:
+        magic = bed.read(3)
+    if magic[:2] != b"\x6c\x1b":
+        raise ValueError(f"{bed_file} is not a PLINK BED file (bad magic)")
+    if magic[2] != 1:
+        raise ValueError("Only SNP-major (mode 1) BED files are supported")
+
+
+def read_bed_bytes(file: str) -> Tuple[np.ndarray, int, int]:
+    """Read the raw SNP-major byte matrix of shape (M, ceil(N/4)), with N
+    and M."""
+    bed_file = Path(file).with_suffix(".bed")
+    N, M = read_bed_dims(file)
+    _check_magic(bed_file)
+    B = np.fromfile(bed_file, dtype=np.uint8, offset=3)
+    return B.reshape(M, ceil(N / 4)), N, M
+
+
 def decode_bed_numpy(B: np.ndarray, N: int) -> np.ndarray:
     """Decode SNP-major BED bytes (M, ceil(N/4)) to sample-major dosages (N, M)."""
     M = B.shape[0]
     G = _LUT8[B].reshape(M, -1)[:, :N]
     return np.ascontiguousarray(G.T)
+
+
+def _native():
+    """The native library's bindings, or None where it cannot be built."""
+    from ..native import bed_native
+    return bed_native if bed_native.available() else None
+
+
+def read_bed(file: str) -> np.ndarray:
+    """Read a BED fileset into a (N, M) uint8 dosage matrix (3 = missing),
+    natively where the library is built, else through NumPy."""
+    B, N, M = read_bed_bytes(file)
+    native = _native()
+    return native.decode_bed(B, N) if native else decode_bed_numpy(B, N)
+
+
+def _bed_block_to_packed(B: np.ndarray, N: int, m_pad: int, native
+                         ) -> np.ndarray:
+    """SNP-major BED bytes (M, ceil(N/4)) -> packed rows (N, m_pad // 4),
+    through the native library or, without it, its NumPy twin."""
+    if native:
+        return native.bed_to_packed(B, N, m_pad)
+    return pack_2bit_rows(decode_bed_numpy(B, N), m_pad=m_pad)
 
 
 _BYTE_CODE_CNT = np.stack([(_LUT8 == v).sum(axis=1)
@@ -129,26 +177,51 @@ def rezero_flip_padding(packed: np.ndarray, M: int) -> np.ndarray:
     return packed
 
 
+def read_bed_packed_rows(file: str, start: int, end: int,
+                         lane_multiple: int = 2048
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode only sample rows [start, end) into the packed layout.
+
+    The per-host input path of a run over several processes: each decodes
+    and holds just its block; the .bed bytes are memmapped so only the
+    pages covering the requested samples are read. No validation or
+    minor-allele flip is applied -- both need global code counts -- so this
+    returns (packed_rows, local_code_counts) and the caller combines the
+    counts across hosts before flipping (flip_packed_minor_allele +
+    rezero_flip_padding).
+    """
+    N, M = read_bed_dims(file)
+    if not 0 <= start <= end <= N:
+        raise ValueError(f"rows [{start}, {end}) are not within [0, {N})")
+    b0, b1 = start // 4, ceil(end / 4)
+    mm = np.memmap(Path(file).with_suffix(".bed"), dtype=np.uint8,
+                   mode="r", offset=3, shape=(M, ceil(N / 4)))
+    B = np.ascontiguousarray(mm[:, b0:b1])
+    del mm
+    n_slice = min(4 * b1, N) - 4 * b0  # decoded samples in the byte slice
+    m_pad = ((M + lane_multiple - 1) // lane_multiple) * lane_multiple
+    packed = _bed_block_to_packed(B, n_slice, m_pad, _native())
+    del B
+    packed = np.ascontiguousarray(packed[start - 4 * b0:end - 4 * b0])
+    return packed, packed_code_counts(packed, M)
+
+
 def read_bed_packed(file: str, lane_multiple: int = 2048,
                     block_m: int = None) -> Tuple[np.ndarray, int, int]:
     """Read a BED fileset straight into the sample-major 2-bit packed layout.
 
     The .bed payload is memmapped and decoded in SNP blocks of ``block_m``
     variants, so neither the (N, M) uint8 matrix nor the whole SNP-major
-    byte matrix is ever held in memory. Applies the reference's validation
-    (biallelic codes) and minor-allele flip (mean dosage >= 1 -> 2 - g) in
-    the packed domain. Returns (packed (N, m_pad//4) uint8, N, M), with M
-    padded to a multiple of ``lane_multiple``.
+    byte matrix is ever held in memory. Each block is decoded by the
+    native library where it is built, else by its NumPy twin. Applies the
+    reference's validation (biallelic codes) and minor-allele flip (mean
+    dosage >= 1 -> 2 - g) in the packed domain. Returns (packed (N,
+    m_pad//4) uint8, N, M), with M padded to a multiple of
+    ``lane_multiple``.
     """
-    file_path = Path(file)
-    bed_file = file_path.with_suffix(".bed")
+    bed_file = Path(file).with_suffix(".bed")
     N, M = read_bed_dims(file)
-    with open(bed_file, "rb") as bed:
-        magic = bed.read(3)
-        if magic[:2] != b"\x6c\x1b":
-            raise ValueError(f"{bed_file} is not a PLINK BED file (bad magic)")
-        if magic[2] != 1:
-            raise ValueError("Only SNP-major (mode 1) BED files are supported")
+    _check_magic(bed_file)
     mm = np.memmap(bed_file, dtype=np.uint8, mode="r", offset=3,
                    shape=(M, ceil(N / 4)))
     counts = bed_code_counts(mm, N)
@@ -159,8 +232,10 @@ def read_bed_packed(file: str, lane_multiple: int = 2048,
         / max(1, int(counts.sum()))
 
     m_pad = ((M + lane_multiple - 1) // lane_multiple) * lane_multiple
+    native = _native()
     if block_m is None:
-        # ~256 MB of block temporaries (the (N, block_m) dense block).
+        # ~256 MB of block temporaries (the NumPy twin's (N, block_m) dense
+        # block).
         block_m = (1 << 28) // max(N, 1)
     block_m = max(4, (block_m // 4) * 4)  # 4 SNPs = 1 packed byte column
     packed = np.zeros((N, m_pad // 4), dtype=np.uint8)
@@ -169,7 +244,7 @@ def read_bed_packed(file: str, lane_multiple: int = 2048,
         B_blk = np.ascontiguousarray(mm[m0:m1])
         # The final block carries the lane padding out to m_pad.
         w = (m_pad if m1 == M else m1) - m0
-        pb = pack_2bit_rows(decode_bed_numpy(B_blk, N), m_pad=w)
+        pb = _bed_block_to_packed(B_blk, N, w, native)
         packed[:, m0 // 4:(m0 + w) // 4] = pb
         del B_blk, pb
     del mm

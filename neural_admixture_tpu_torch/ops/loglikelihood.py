@@ -7,11 +7,13 @@
     eps = 1e-6.
 
 Missing genotypes ARE masked here, unlike in the training loss.
-:func:`loglikelihood` is the host float64 formula; :func:`loglikelihood_packed`
-feeds it from 2-bit packed rows, and above ``device_threshold`` genotypes
-evaluates fp32 blocks on a device instead, accumulated in float64 on the
-host; the blocks reach the device through the stager (io/stage.py), so the
-whole packed matrix is never uploaded.
+:func:`loglikelihood` is the host float64 formula, through the native host
+library (native/bed_native.py, C++) at the default ``eps`` where it is
+built, else its NumPy twin :func:`loglikelihood_numpy`.
+:func:`loglikelihood_packed` feeds it from 2-bit packed rows, and above
+``device_threshold`` genotypes evaluates fp32 blocks on a device instead,
+accumulated in float64 on the host; the blocks reach the device through the
+stager (io/stage.py), so the whole packed matrix is never uploaded.
 """
 import numpy as np
 import torch
@@ -27,7 +29,19 @@ _EPS = 1e-6
 def loglikelihood(G: np.ndarray, P: np.ndarray, Q: np.ndarray, K: int,
                   eps: float = _EPS, block: int = 2048) -> float:
     """G: (N, M) uint8, P: (M, K), Q: (N, K) -> the log-likelihood, in
-    float64 on the host."""
+    float64 on the host: natively at the default ``eps`` where the library
+    is built (as the JAX package does), else through NumPy."""
+    if eps == _EPS:
+        from ..native import bed_native
+        if bed_native.available():
+            return bed_native.loglikelihood(np.asarray(G), P, Q, eps)
+    return loglikelihood_numpy(G, P, Q, eps, block)
+
+
+def loglikelihood_numpy(G: np.ndarray, P: np.ndarray, Q: np.ndarray,
+                        eps: float = _EPS, block: int = 2048) -> float:
+    """The NumPy twin of the native log-likelihood: the formula in float64,
+    ``block`` rows at a time."""
     G = np.asarray(G)
     P = np.asarray(P, np.float64)
     Q = np.asarray(Q, np.float64)

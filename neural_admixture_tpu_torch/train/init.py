@@ -16,7 +16,8 @@ seeded from (seed, K), so the card and the CPU start from the same seeding.
 Supervised (one K): the labels, sorted by name, become 0..K-1
 (:func:`encode_populations`), and P_k's row c is the mean RAW code of the
 rows labelled c, missing (3) included, as the reference does
-(:func:`init_p_supervised_packed`, on the packed rows' device).
+(:func:`init_p_supervised_packed`, on the packed rows' device;
+:func:`init_p_supervised` from a dense (N, M) matrix on the host).
 
 The packed rows are a tensor on the device that computes, or a host array
 with that ``device``: uploaded once, or with ``stream`` read block by block
@@ -83,6 +84,13 @@ def encode_populations(pops: Sequence[str], K: int
                          f"({len(ancestry)}) is not equal to the value of K "
                          f"({K})")
     return np.asarray([ancestry[p] for p in pops], dtype=np.int64), ancestry
+
+
+def init_p_supervised(G: np.ndarray, y: np.ndarray, K: int) -> np.ndarray:
+    """(K, M) float32: row c is the mean raw code (0..3, missing 3
+    included) of the rows of the dense (N, M) uint8 ``G`` labelled c."""
+    return np.vstack([G[y == idx, :].astype(np.float32).mean(axis=0)
+                      for idx in range(K)])
 
 
 def init_p_supervised_packed(packed, y: np.ndarray, K: int, M: int,

@@ -1,9 +1,9 @@
 """Train mode: read -> pack -> RSVD -> init P -> train -> save.
 
 The JAX package's train/run.py ``main_train`` for the ported slice: a
-PLINK BED on one device, one K (``--k``) or a K range (``--min_k`` ..
-``--max_k``, one head per K, trained jointly), unsupervised or supervised
-(``--pops_path``, one K), with resumable checkpoints
+PLINK BED, a PGEN or a VCF on one device, one K (``--k``) or a K range
+(``--min_k`` .. ``--max_k``, one head per K, trained jointly), unsupervised
+or supervised (``--pops_path``, one K), with resumable checkpoints
 (``--checkpoint_every``, ``--resume``, SIGTERM) and host streaming
 (``--stream``). Resident, the packed rows go to the device once for the
 RSVD and the P init and once more for training; streamed (``--stream 1``,
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..infer import read_packed, select_device
+from ..io.snp_reader import input_format
 from ..io.torch_interop import save_pt_checkpoint
 from ..io.writers import save_checkpoint, save_config, write_outputs
 from ..ops.loglikelihood import loglikelihood_packed
@@ -78,8 +79,10 @@ def main_train(args, t0: float) -> int:
     device = select_device(int(args.num_gpus), getattr(args, "mesh", None),
                            "training")
     stream = STREAM_MAP[getattr(args, "stream", "auto")]
-    packed, N, M = read_packed(args.data_path)  # a BED: others raise
-    log.info("    Input format is BED.")
+    fmt = input_format(args.data_path)
+    if fmt is not None:
+        log.info(f"    Input format is {fmt}.")
+    packed, N, M = read_packed(args.data_path)
     log.info(f"    Data contains {N} samples and {M} SNPs.")
     y_num = None
     if args.pops_path:

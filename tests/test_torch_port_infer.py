@@ -185,11 +185,15 @@ def test_cli_infer_mesh_1x1_is_one_device(tmp_path):
 
 
 def test_unported_reader_raises(tmp_path):
+    """Every input format of the JAX package is ported; any other suffix
+    logs its error and exits 1, as the JAX package's infer does."""
     _demo_model(tmp_path, "m", [3])
     argv = _infer_argv(tmp_path, "m", "o") + ["--num_gpus", "0"]
-    argv[argv.index("--data_path") + 1] = str(tmp_path / "x.vcf")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    argv[argv.index("--data_path") + 1] = str(tmp_path / "x.txt")
+    with pytest.raises(SystemExit) as info:
         tentry.main(argv)
+    assert info.value.code == 1
+    assert not list(tmp_path.glob("o.*"))
 
 
 def test_yaml_config_defaults(tmp_path):
