@@ -60,6 +60,16 @@ non-zero exit and no result line:
      samples/s; 2 epochs with a checkpoint every epoch resumed (streamed)
      to 3, bit-equal to 3 uninterrupted epochs, with the save and load
      seconds; the streamed RSVD and PCA projection bit-equal to phase 6's;
+  6d. full width, grids of ranks (K = 8, phase 4's rows, phase 6's V and P
+     init, 2 epochs): 2 x 1 and 2 x 2 grids of ranks on the one card over
+     gloo (parallel/distributed.py spawn_grid), each held to the one-rank
+     run emulating their layout (NA_TPU_EMULATE_PROC_SHARDS=2,2) by the
+     trajectory rule, exact launch counts on every rank, the sharded
+     infer_q (2 x 2) against phase 4's Q, the rows= RSVD (2 x 1) against
+     phase 6's V; a one-rank NCCL grid against phase 6's run; a 2 x 1
+     grid over NCCL across two cards where the machine has two; each
+     rank's warm step split into compute (CUDA events) and each
+     collective (host clock, bytes);
   7. CLI: ``train`` on the demo BED on the card and on the CPU (K = 7, a
      K range 2..4, and supervised with the argmax labels of the reference's
      K = 7 Q, which name 5 populations): the output files, the .npz through
@@ -69,7 +79,9 @@ non-zero exit and no result line:
      run sent SIGTERM exits 143 and its ``--resume`` finishes, and the
      demo's dosages written as a mode-0x10 PGEN and a VCF train to the BED
      run's .Q and .P byte for byte (logging "Input format is PGEN." /
-     "VCF.") and ``infer`` on them writes the BED's .Q;
+     "VCF.") and ``infer`` on them writes the BED's .Q; ``train --num_gpus
+     2`` on one card logs the clamp and writes the ``--num_gpus 1`` run's
+     .Q byte for byte;
   A/B (only with ``--ab DIR``): the kernels of DIR, a copy of another
      commit's csrc/ with the same C interfaces (the parent's), built into
      DIR/build while the phases run, timed against the checkout's in the
@@ -81,7 +93,8 @@ non-zero exit and no result line:
      instance's ptxas registers of DIR's build against the checkout's;
   8. the run's seconds, the card's name and power limit, one JSON line with
      every kernel's numbers (those of the phases run; launches: phases 6,
-     6b and 6c's streamed runs);
+     6b, 6c's streamed runs and 6d's ranks, summed, with 6d's per rank in
+     ``grid_launches_per_rank``);
   9. the last line: {"ok": true, "device": {...}}.
 
 ``--phases env,build,kernels`` runs only those phases (a short check of a
@@ -2041,6 +2054,196 @@ def phase_stream(dev, packed, trained):
     return streamed_counts
 
 
+# Phase 6d's grids of ranks on the one card, over gloo (NCCL refuses two
+# ranks on one device): (data, snp).
+GRID_SHAPES = ((2, 1), (2, 2))
+# The collectives of a training step, in the order a step calls them.
+GRID_LABELS = ("exchange", "xp_snp", "dxp_snp", "grad_data", "grad_world")
+
+
+def grid_rank(grid, packed_path, V, P_init, infer_params, with_rsvd):
+    """One rank of phase 6d (a module-level function: ranks start with
+    ``spawn``): its data row's rows of phase 4's matrix, optionally the
+    ``rows=`` RSVD, 2 epochs of training with the grid's profile on and
+    the launches counted, and optionally the sharded infer_q with phase
+    4's weights. Returns what the phase checks and prints."""
+    from neural_admixture_tpu_torch.infer import infer_q_mesh
+    from neural_admixture_tpu_torch.utils.logger import log
+    log.setLevel("WARNING")  # the trainer's log lines, once per rank
+    packed = np.load(packed_path, mmap_mode="r")
+    cfg = TrainConfig(epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH, seed=SEED,
+                      hidden_size=H_FULL, n_components=D_FULL, ks=[K_FULL],
+                      progress=False, sample_block=BLOCK,
+                      device=str(grid.device))
+    trainer = NeuralAdmixtureTrainer(cfg, grid=grid)
+    start, end, _ = trainer.sample_shard(packed.shape[1] * 4, N_FULL)
+    local = np.array(packed[start:end])  # a writable copy of the mmap
+    out = {"at": (grid.d, grid.s), "rows": (start, end)}
+    if with_rsvd:
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        out["V"] = rsvd(torch.from_numpy(local).to(grid.device), N_FULL,
+                        M_FULL, D_FULL, SEED, rows=(start, end), grid=grid)
+        out["rsvd_s"] = time.perf_counter() - t_s
+    reset_counts()
+    grid.start_profile()
+    Qs, Ps, _ = trainer.launch_training(P_init, local, V, M_FULL, N_FULL,
+                                        host_rows=(start, end))
+    grid.stop_profile()
+    out["counts"] = read_counts()
+    out["profiles"] = trainer.epoch_profiles
+    out["epoch_s"] = trainer.epoch_seconds
+    out["loss"] = trainer.logged_losses[0]
+    out["Q"] = Qs[0]
+    if grid.rank == 0:
+        out["P"] = Ps[0]
+    if infer_params is not None:
+        reset_counts()
+        out["infer_Q"] = infer_q_mesh(infer_params, local, N_FULL, [K_FULL],
+                                      BATCH, grid)[0]
+        out["infer_counts"] = read_counts()
+    return out
+
+
+def print_grid_steps(tag, results, nb, how):
+    """Each rank's warm step (epoch 1's steps averaged): wall (host clock),
+    compute between collectives (CUDA events) and each collective (host
+    clock, bytes off the rank)."""
+    for r in results:
+        prof = r["profiles"][1]
+        parts = ", ".join(
+            f"{lab} {1e3 * prof.seconds[lab] / nb:.3f} ms"
+            + (f" ({prof.bytes[lab] / nb / 1e6:.2f} MB)"
+               if prof.bytes.get(lab) else "")
+            for lab in GRID_LABELS if lab in prof.seconds)
+        print(f"   {tag} rank at {r['at']}: warm step "
+              f"{1e3 * r['epoch_s'][1] / nb:.3f} ms: compute "
+              f"{prof.compute_ms / nb:.3f} ms (CUDA events), {parts}; {how}")
+
+
+def phase_grid(dev, card, packed, trained, infer_params, infer_Q):
+    """Training and inference over grids of ranks at full width (phase 4's
+    rows, phase 6's V and P init, K = 8, batch 800, sample_block 16, 2
+    epochs): 2 x 1 and 2 x 2 grids of ranks sharing the card over gloo
+    against the one-rank run emulating their layout
+    (NA_TPU_EMULATE_PROC_SHARDS=2,2), exact launch counts per rank, the
+    sharded infer_q (2 x 2) against phase 4's Q, the rows= RSVD (2 x 1)
+    against phase 6's V; a one-rank NCCL grid against phase 6's run; two
+    cards over NCCL where there are two. Returns {kernel: launches} of the
+    grid runs and the per-rank counts."""
+    t = phase("6d. grid: 2x1 and 2x2 gloo grids on one card, a 1-rank NCCL "
+              "group")
+    from neural_admixture_tpu_torch.parallel.distributed import spawn_grid
+    V, P_init = trained["V"], trained["P_init"]
+    W = packed.shape[1]
+    _, nb, _, _ = block_geometry(N_FULL, TRAIN_BATCH, BLOCK, 2)
+    torch.cuda.empty_cache()
+    os.environ["NA_TPU_EMULATE_PROC_SHARDS"] = "2,2"
+    try:
+        ref_tr = NeuralAdmixtureTrainer(TrainConfig(
+            epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH, seed=SEED,
+            hidden_size=H_FULL, n_components=D_FULL, ks=[K_FULL],
+            progress=False, sample_block=BLOCK, device=str(dev)))
+        ref = ref_tr.launch_training(P_init, packed, V, M_FULL, N_FULL)
+    finally:
+        del os.environ["NA_TPU_EMULATE_PROC_SHARDS"]
+    print(f"   one rank emulating 2 data rows: epoch 1 "
+          f"{1e3 * ref_tr.epoch_seconds[1] / nb:.3f} ms a step")
+    totals, per_rank = {}, {}
+    how = f"gloo through host memory, ranks sharing one card ({card})"
+    with tempfile.TemporaryDirectory() as d:
+        packed_path = os.path.join(d, "packed.npy")
+        np.save(packed_path, packed)
+        runs = {}
+        for shape in GRID_SHAPES + ((1, 1),):
+            n = shape[0] * shape[1]
+            nccl = shape == (1, 1)
+            t_s = time.perf_counter()
+            runs[shape] = spawn_grid(
+                grid_rank, *shape, devices=["cuda:0"] * n,
+                backend="nccl" if nccl else "gloo",
+                args=(packed_path, V, P_init,
+                      infer_params if shape == (2, 2) else None,
+                      shape == (2, 1)))
+            print(f"   {shape[0]}x{shape[1]} "
+                  f"{'NCCL' if nccl else 'gloo'}: {n} rank(s) started, ran "
+                  f"and ended in {time.perf_counter() - t_s:.1f} s")
+        two_cards = torch.cuda.device_count() >= 2
+        if two_cards:
+            runs["2x1 nccl"] = spawn_grid(
+                grid_rank, 2, 1, devices=["cuda:0", "cuda:1"],
+                backend="nccl",
+                args=(packed_path, V, P_init, None, False))
+
+    for key, results in runs.items():
+        tag = (f"{key[0]}x{key[1]}" + (" NCCL" if key == (1, 1) else
+                                        " gloo")
+               if isinstance(key, tuple) else key)
+        D = 1 if key == (1, 1) else 2
+        n_local = N_FULL // D
+        want = expected_counts("default", nb, 1, -(-n_local // BATCH))
+        for r in results:
+            if r["counts"] != want:
+                raise AssertionError(f"{tag} rank at {r['at']}: launches "
+                                     f"{r['counts']}, expected {want}")
+        per_rank[tag] = [r["counts"] for r in results]
+        for r in results:
+            for name, c in r["counts"].items():
+                totals[name] = totals.get(name, 0) + c
+        if key == (1, 1):
+            want_run = trained["run"]
+            exact = (np.array_equal(results[0]["Q"], want_run[0][0])
+                     and np.array_equal(results[0]["P"], want_run[1][0]))
+        else:
+            want_run = ref
+            exact = None
+        d_p = assert_trajectory_close(results[0]["P"], want_run[1][0],
+                                      lr=2e-3)
+        for r in results:
+            d_q = assert_trajectory_close(r["Q"], want_run[0][0], lr=2e-3)
+        print(f"   {tag}: every rank's launches as expected "
+              + ", ".join(f"{n} {c}" for n, c in want.items() if c)
+              + f"; logged loss {results[0]['loss']:.6e}; P max|d| "
+              f"{d_p[0]:.3e}, Q max|d| {d_q[0]:.3e} against "
+              + ("phase 6's one-rank run" if key == (1, 1) else
+                 "the one-rank run emulating 2 data rows")
+              + (f" (bit-equal: {exact})" if exact is not None else ""))
+        print_grid_steps(tag, results, nb,
+                         "NCCL, one rank: its collectives copy"
+                         if key == (1, 1) else
+                         "NCCL across two cards" if key == "2x1 nccl"
+                         else how)
+    if not two_cards:
+        print(f"   NCCL across cards did not run: "
+              f"{torch.cuda.device_count()} card on this machine")
+
+    for r in runs[(2, 2)]:
+        np.testing.assert_allclose(r["infer_Q"], infer_Q, rtol=2e-5,
+                                   atol=2e-6)
+        want = dict.fromkeys(COUNTERS, 0)
+        want["xv"] = -(-(N_FULL // 2) // BATCH)
+        if r["infer_counts"] != want:
+            raise AssertionError(f"sharded infer_q launches "
+                                 f"{r['infer_counts']}, expected {want}")
+    d_inf = max(np.abs(r["infer_Q"] - infer_Q).max() for r in runs[(2, 2)])
+    print(f"   2x2 sharded infer_q: every rank's Q within rtol 2e-5, atol "
+          f"2e-6 of phase 4's (max|d| {d_inf:.3e}); {want['xv']} xv launches "
+          f"a rank")
+    V_one = trained["V"]
+    for r in runs[(2, 1)]:
+        for c in range(D_FULL):
+            np.testing.assert_allclose(
+                r["V"][c], V_one[c], rtol=0,
+                atol=2e-4 * np.abs(V_one[c]).max(), err_msg=f"component {c}")
+    d_v = max(np.abs(r["V"] - V_one).max() for r in runs[(2, 1)])
+    print(f"   2x1 rows= RSVD: every rank's V within 2e-4 of each "
+          f"component's largest of phase 6's (max|d| {d_v:.3e}); "
+          + ", ".join(f"rank at {r['at']} {r['rsvd_s']:.3f} s"
+                      for r in runs[(2, 1)]) + " (host clock)")
+    done(t)
+    return totals, per_rank
+
+
 def phase_cli_train(dev):
     """``train`` on the demo BED through the CLI, on the card and on the
     CPU, for one K, a K range and supervised mode: the output files, one
@@ -2151,6 +2354,7 @@ def phase_cli_train(dev):
                       f"{ll_g:,.1f} vs {ll_c:,.1f}")
         cli_stream_and_preempt(d)
         cli_other_formats(d)
+        cli_clamp(d)
     done(t)
 
 
@@ -2219,6 +2423,34 @@ def cli_stream_and_preempt(d):
           f"the first checkpoint: exit 143 at epoch {stopped} of {epochs} "
           f"({secs:.1f} s); --resume: rc 0, resumed from epoch {stopped} "
           f"({time.perf_counter() - t_cli:.1f} s)")
+
+
+def cli_clamp(d):
+    """``train --num_gpus 2`` on a machine of one card: the JAX package's
+    clamp warning, then the ``--num_gpus 1`` run (``k7_gpu``) byte for
+    byte."""
+    if torch.cuda.device_count() != 1:
+        print(f"   train --num_gpus 2: not run ({torch.cuda.device_count()} "
+              "cards: no clamp to show)")
+        return
+    t_cli = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "neural_admixture_tpu_torch.entry", "train",
+         "--k", "7", "--data_path", DEMO_BED, "--save_dir", d, "--name",
+         "k7_clamp", "--epochs", "5", "--seed", "42", "--num_gpus", "2",
+         "--no_progress"], cwd=REPO, check=True, capture_output=True,
+        text=True)
+    warning = ("Requested 2 devices, but only 1 are available. Using 1 "
+               "devices.")
+    if warning not in r.stdout + r.stderr:
+        raise AssertionError("train --num_gpus 2 logged no clamp warning")
+    with open(os.path.join(d, "k7_clamp.7.Q"), "rb") as fa, \
+            open(os.path.join(d, "k7_gpu.7.Q"), "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError("--num_gpus 2 on one card wrote another .Q")
+    print(f"   train K=7 --num_gpus 2 on one card: "
+          f"{time.perf_counter() - t_cli:.1f} s; '{warning}', then .7.Q "
+          "byte for byte that of --num_gpus 1")
 
 
 def cli_other_formats(d):
@@ -2428,7 +2660,7 @@ def phase_ab(dev, parent_dir, parent_build, logs):
 
 
 PHASES = ("env", "build", "kernels", "infer", "readers", "cli_infer",
-          "train", "multihead", "stream", "cli_train")
+          "train", "multihead", "stream", "grid", "cli_train")
 
 
 def parse_args(argv):
@@ -2437,8 +2669,8 @@ def parse_args(argv):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated phases to run, in their fixed "
                     "order (default: all): " + ", ".join(PHASES) + "; "
-                    "readers and train need infer, multihead and stream "
-                    "need train")
+                    "readers and train need infer, multihead, stream and "
+                    "grid need train")
     ap.add_argument("--ab", default=None, metavar="DIR",
                     help="also time the kernels built from DIR (a copy of "
                     "another commit's csrc/, e.g. the parent's unpacked "
@@ -2450,7 +2682,8 @@ def parse_args(argv):
     if bad:
         ap.error(f"unknown phases {bad}; choose from {list(PHASES)}")
     for need, what in (("infer", "readers"), ("infer", "train"),
-                       ("train", "multihead"), ("train", "stream")):
+                       ("train", "multihead"), ("train", "stream"),
+                       ("train", "grid")):
         if what in args.phases and need not in args.phases:
             ap.error(f"phase {what} needs phase {need}")
     return args
@@ -2494,6 +2727,14 @@ def main(argv=None):
         kernels += phase_multihead(dev, packed, trained["V"])
     if "stream" in run:
         add_launches(kernels, phase_stream(dev, packed, trained))
+    if "grid" in run:
+        totals, per_rank = phase_grid(dev, card, packed, trained,
+                                      infer_params, infer_Q)
+        add_launches(kernels, totals)
+        for entry in kernels:
+            entry["grid_launches_per_rank"] = {
+                tag: [c[entry["name"]] for c in counts]
+                for tag, counts in per_rank.items()}
     if "infer" in run:
         del packed
     if "cli_train" in run:

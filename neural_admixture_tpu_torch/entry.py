@@ -1,20 +1,29 @@
 """CLI entry point: ``neural-admixture-tpu-torch {train,infer} ...``.
 
 The flag surface of the JAX package's CLI, with YAML config-file support
-(``--config file.yaml``). Ported so far, on one device and a PLINK .bed, a
-PGEN or a VCF:
+(``--config file.yaml``). Ported so far, on a PLINK .bed, a PGEN or a VCF:
 ``train`` with one K (``--k``) or a K range (``--min_k``/``--max_k``, one
 head per K), unsupervised or supervised (``--pops_path``, one K), with
 resumable checkpoints (``--checkpoint_every``, ``--resume``) and host
-streaming (``--stream``), and ``infer``. Both run on the card by default
-(``--num_gpus 1``); ``--num_gpus 0`` asks for the CPU, and ``--mesh 1x1``
-is that one device. Every flag of the JAX package parses; those outside the
-ported slice (``--num_gpus > 1``, a larger ``--mesh``, ``--cv``,
-``--init_restarts > 1``, ``--profile_dir``) raise "not ported yet" with the
-ROADMAP.md item that ports them. The JAX
-package's environment variables ``NA_TPU_INDEXED``, ``NA_TPU_SPLIT_LOSS``
-and ``NA_TPU_FORCE_MASKED`` choose the training program
-(train/engine.py).
+streaming (``--stream``) on one device, and ``infer``. Both run on the card
+by default (``--num_gpus 1``); ``--num_gpus 0`` asks for the CPU, and
+``--mesh 1x1`` is that one device.
+
+Several devices (parallel/): ``--num_gpus N > 1`` trains or infers on N
+cards, one rank each over NCCL, all data-parallel; ``--mesh DxS`` on a
+(data, snp) grid of D x S ranks (on cards, or with ``--num_gpus 0`` on CPU
+ranks over gloo). Several hosts join through the JAX package's variables
+NA_TPU_COORDINATOR (host:port of the host that runs rank 0),
+NA_TPU_NUM_PROCESSES (the number of hosts) and NA_TPU_PROCESS_ID (this
+host's index), each host starting its own ranks. ``--num_gpus`` above the
+visible cards warns and uses those there are, as in the JAX package.
+
+Every flag of the JAX package parses; those outside the ported slice
+(``--cv``, ``--init_restarts > 1``, ``--profile_dir``, and ``--stream 1``
+or checkpoints on a grid) raise "not ported yet" with the ROADMAP.md item
+that ports them. The JAX package's environment variables
+``NA_TPU_INDEXED``, ``NA_TPU_SPLIT_LOSS`` and ``NA_TPU_FORCE_MASKED``
+choose the training program (train/engine.py).
 """
 import argparse
 import logging
@@ -161,11 +170,12 @@ def parse_train_args(argv: List[str]) -> argparse.Namespace:
                         default=8, help="Number of components to use for "
                         "the SVD initialization.")
     parser.add_argument("--num_gpus", required=False, default=1, type=int,
-                        help="Number of devices: 1 (default) = the CUDA "
-                        "card, 0 = CPU. More than one is not ported yet.")
+                        help="Number of devices on each host: 1 (default) "
+                        "= one CUDA card, N > 1 = N cards (one rank each, "
+                        "data-parallel), 0 = the CPU.")
     parser.add_argument("--mesh", required=False, default=None, type=str,
-                        help="Device mesh as DATAxSNP; only 1x1 (one "
-                        "device) is ported yet.")
+                        help="Grid of ranks as DATAxSNP (samples over DATA, "
+                        "SNPs over SNP); with --num_gpus 0, CPU ranks.")
     parser.add_argument("--sample_block", required=False, default=16,
                         type=int, help="Batch sampling granularity: draw "
                         "random runs of this many consecutive (pre-shuffled) "
@@ -223,11 +233,12 @@ def parse_infer_args(argv: List[str]) -> argparse.Namespace:
     parser.add_argument("--seed", required=False, type=int, default=42,
                         help="Seed")
     parser.add_argument("--num_gpus", required=False, default=1, type=int,
-                        help="Number of devices: 1 (default) = the CUDA "
-                        "card, 0 = CPU. More than one is not ported yet.")
+                        help="Number of devices on each host: 1 (default) "
+                        "= one CUDA card, N > 1 = N cards (one rank each, "
+                        "data-parallel), 0 = the CPU.")
     parser.add_argument("--mesh", required=False, default=None, type=str,
-                        help="Device mesh as DATAxSNP; only 1x1 (one "
-                        "device) is ported yet.")
+                        help="Grid of ranks as DATAxSNP (samples over DATA, "
+                        "SNPs over SNP); with --num_gpus 0, CPU ranks.")
     parser.add_argument("--threads", required=False, default=1, type=int,
                         help="Number of threads to be used during execution.")
     _apply_yaml_defaults(parser, argv)
@@ -301,11 +312,30 @@ def main(argv: Optional[List[str]] = None) -> int:
     log.info(f"    Using {args.threads} threads...")
     set_seed(args.seed)
 
+    # Several hosts: from the NA_TPU_* variables (raises on a partial set).
+    from .parallel.distributed import maybe_initialize_distributed
+    hosts = maybe_initialize_distributed()
+
+    # The device-count clamp, as the JAX package's entry.py:341-348 (the
+    # reference's GPU clamp); no card at all is no clamp but an error.
+    if args.num_gpus > 1:
+        available = torch.cuda.device_count()
+        if available == 0:
+            raise RuntimeError(
+                f"--num_gpus {args.num_gpus} asks for CUDA devices, but no "
+                "CUDA device is available (torch.cuda.device_count() is 0). "
+                "Use --num_gpus 0 to run on the CPU.")
+        if args.num_gpus > available:
+            log.warning(f"    Requested {args.num_gpus} devices, but only "
+                        f"{available} are available. Using {available} "
+                        "devices.")
+            args.num_gpus = available
+
     if mode == "train":
         from .train.run import main_train
-        return main_train(args, t0)
+        return main_train(args, t0, hosts)
     from .infer import main_infer
-    return main_infer(args, t0)
+    return main_infer(args, t0, hosts)
 
 
 if __name__ == "__main__":

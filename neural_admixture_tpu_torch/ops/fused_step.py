@@ -31,6 +31,13 @@ every kernel reads in place. That is one op with an optional block index,
 as on the card it is one argument of the same kernels; the backward keeps
 the resident tensor by reference, never a copy.
 
+On a grid of ranks (parallel/grid.py), ``snp_group`` sums the SNP block's
+partial Xp over the data row's snp group right after K2
+(parallel/sharded_step.py ``PsumSnp``: the all_reduce forward, and the
+all_reduce of the cotangent before K5 backward), as the JAX op's
+``snp_axis`` psums (ops/fused_step.py:826-827, :889-892). The kernels see
+the local block and do not change.
+
 Gradient semantics are the JAX package's ops/loss.py (torch BCE backward,
 boundary-inclusive clamp gradient). ``masked=False`` is for batches of
 all-real rows: padded packed bits decode to x = 0 and padded P columns are
@@ -48,11 +55,21 @@ from .dv import dv
 from .xv import xv
 
 
-def fused_infer_q(encoder, packed: torch.Tensor, no_missing: bool = False
-                  ) -> Dict[str, torch.Tensor]:
+def _psum_snp(Xp: torch.Tensor, snp_group) -> torch.Tensor:
+    if snp_group is None:
+        return Xp
+    from ..parallel.sharded_step import PsumSnp
+    return PsumSnp.apply(Xp, snp_group)
+
+
+def fused_infer_q(encoder, packed: torch.Tensor, no_missing: bool = False,
+                  snp_group=None) -> Dict[str, torch.Tensor]:
     """``encoder`` is a models.qp.QPEncoder on ``packed``'s device; returns
-    {head key: Q (B, k)}."""
-    return encoder.encode_from_xp(xv(packed, encoder.V, no_missing))
+    {head key: Q (B, k)}. ``snp_group``: the parallel.grid.Grid whose snp
+    group holds the other SNP blocks of these rows (``packed`` and V are
+    this rank's block)."""
+    return encoder.encode_from_xp(
+        _psum_snp(xv(packed, encoder.V, no_missing), snp_group))
 
 
 class XV(torch.autograd.Function):
@@ -114,7 +131,8 @@ class PlaneBCE(torch.autograd.Function):
 def fused_training_loss(model, packed: torch.Tensor, col_mask: torch.Tensor,
                         row_w: torch.Tensor, masked: bool, no_missing: bool,
                         logged: bool, merged: bool = True,
-                        blk_idx: Optional[torch.Tensor] = None, blk: int = 1
+                        blk_idx: Optional[torch.Tensor] = None, blk: int = 1,
+                        snp_group=None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(BCE loss summed over heads in ascending K, {head: Q}) of a
     models.qp.QPModel on one packed batch: ``packed`` (B, W) uint8, or the
@@ -122,8 +140,11 @@ def fused_training_loss(model, packed: torch.Tensor, col_mask: torch.Tensor,
     batch. ``loss.backward()`` fills the gradients of V, the encoder and
     every P through K3 (or K4's), the encoder's autograd and K5. The loss is
     0 on unlogged steps (``logged=False``); on logged ones it comes from K4
-    (``merged``, the default) or K6 (the split program)."""
-    Xp = XV.apply(model.V, packed, no_missing, blk_idx, blk)
+    (``merged``, the default) or K6 (the split program). ``snp_group``: as
+    in :func:`fused_infer_q`; the loss is then this rank's part of the
+    plane's BCE (its rows, its SNP block)."""
+    Xp = _psum_snp(XV.apply(model.V, packed, no_missing, blk_idx, blk),
+                   snp_group)
     qs = model.encode_from_xp(Xp)
     loss = None
     for hk, q in qs.items():

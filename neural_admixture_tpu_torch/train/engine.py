@@ -59,8 +59,28 @@ the JAX engine's engine.py:1276), then a full-data Q pass.
     seeded from ``seed`` (utils/seeding.py), so a run on the card and a run
     on the CPU draw identical plans and initial weights. ``launch_training``
     also takes both from the caller (the tests hand in the JAX package's).
-
-Left for a later slice (ROADMAP.md Queue 1): several devices (item 12).
+  * A grid of ranks (the trainer's ``grid``, parallel/grid.py; the JAX
+    package's (data, snp) mesh, engine.py:883-1190): a D x S grid runs what
+    the JAX package runs in a D-process run on a (D, S) mesh, on its XLA
+    path's geometry (alignment D: :func:`block_geometry`). Data row d holds
+    that run's process d's rows (:meth:`sample_shard`), pre-shuffled per
+    process under block sampling (:func:`shard_row_order`) and padded to
+    rows_per_process; rank (d, s) keeps SNP block s of them on its device.
+    The epoch plan is global and the same on every rank; data row d takes
+    batch positions [d B/D, (d+1) B/D) and gets the rows it does not hold
+    from the other data rows over the data group (one all_to_all a step:
+    the counts follow from the plan and the ownership, no other message;
+    none when every row is local, as under ``NA_TPU_STRATIFIED=1``,
+    :func:`stratified_plan`). The step is parallel/sharded_step.py's; full
+    batches are gathered, never indexed (as the JAX engine indexes only
+    without a mesh). The Q pass runs per data row and its rows are gathered
+    to every rank, and so are the parameters. Host streaming and
+    checkpoints on a grid are ROADMAP.md Queue 1 item 12b.
+  * ``NA_TPU_EMULATE_PROC_SHARDS="P,D"`` (the JAX package's, engine.py:
+    985-1016): one rank lays its rows out as a P-process run over a D-wide
+    data axis does, with that run's geometry and, under block sampling, its
+    per-process pre-shuffle, another sampling policy than one rank's global
+    pre-shuffle. A grid's run is held to a one-rank run only under it.
 """
 import json
 import os
@@ -79,6 +99,9 @@ from ..models import qp
 from ..ops.fused_step import fused_training_loss
 from ..ops.loss import softmax_cross_entropy_sum
 from ..ops.pack import batch_rows, packed_has_missing
+from ..parallel.distributed import host_sample_shard, rows_per_process, to_host
+from ..parallel.grid import DATA_AXIS, SNP_AXIS, Grid, shard_params
+from ..parallel.sharded_step import infer_q_sharded, make_sharded_loss_and_grad
 from ..utils.hbm import HBM_BUDGET_FRAC, hbm_capacity_bytes
 from ..utils.logger import log, setup_logging
 from ..utils.metrics import fst_table
@@ -89,6 +112,10 @@ INFER_BATCH = 1024
 # The "format" entry of a checkpoint: the layout below (params_to_numpy's
 # names under "param/", Adam's state under "adam/").
 CKPT_FORMAT = "neural_admixture_tpu_torch/train_state/1"
+ITEM_12B = "12b (streaming and checkpoints on a grid)"
+# Each rank's SNP block must be whole 32-bit words of 16 SNPs: every kernel
+# reads its packed rows as u32 words (m_pad % (16 * S) == 0).
+SNP_QUANTUM = 16
 
 # A plan: (idx_full (nb - 1, F), idx_rem (R,)) in units of sample blocks
 # (resident block ids when sample_block > 1, row ids otherwise).
@@ -116,6 +143,14 @@ class TrainConfig:
     checkpoint_every: int = 0
     checkpoint_path: Optional[str] = None
     resume: bool = False
+    # The grid (n_data, n_snp) of a run over several ranks: None = auto
+    # over the ranks there are (NeuralAdmixtureTrainer._pick_mesh).
+    mesh_shape: Optional[Tuple[int, int]] = None
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1 "
+                               f"item {item}.")
 
 
 def smallest_head(qs) -> str:
@@ -123,27 +158,64 @@ def smallest_head(qs) -> str:
     return min(qs, key=lambda hk: int(hk[1:]))
 
 
-def block_geometry(N: int, batch_size: int, blk: int
+def shard_quantum(d_sz: int, blk: int) -> int:
+    """The row quantum of block sampling on a ``d_sz``-wide data axis
+    (the JAX package's XLA path: lcm(d_sz, d_sz * blk))."""
+    return int(np.lcm(d_sz, d_sz * blk))
+
+
+def shard_row_order(N: int, seed: int, n_proc: int, rows_pp: int
+                    ) -> np.ndarray:
+    """Resident row -> input row under the per-process pre-shuffle of block
+    sampling over ``n_proc`` processes (data rows) of ``rows_pp`` rows each:
+    each process shuffles its own input rows, seeded by (seed, process), so
+    every rank can rebuild the whole map without a message. Real resident
+    rows stay contiguous at [0, N) (only the tail process is partial). The
+    JAX package's shard_row_order (engine.py:153-174)."""
+    parts = []
+    for p in range(n_proc):
+        s = min(p * rows_pp, N)
+        e = min(s + rows_pp, N)
+        if e > s:
+            parts.append(s + np.random.default_rng([seed, p])
+                         .permutation(e - s))
+    return np.concatenate(parts)
+
+
+def block_geometry(N: int, batch_size: int, blk: int, d_sz: int = 1
                    ) -> Tuple[int, int, int, int]:
     """(b_round, nb, b_rem, resident_rows): an epoch is nb steps, nb - 1
-    batches of b_round rows and one remainder of b_rem <= b_round rows, all
-    whole blocks of ``blk`` rows; the resident rows are padded to exactly
-    (nb - 1) * b_round + b_rem."""
-    b_round = -(-min(batch_size, N) // blk) * blk
+    batches of b_round rows and one remainder of b_rem <= b_round rows, on a
+    ``d_sz``-wide data axis (the JAX package's XLA-path geometry,
+    engine.py:176-244).
+
+    ``blk`` > 1: all whole blocks of ``blk`` rows, multiples of d_sz * blk;
+    the resident rows are padded to exactly (nb - 1) * b_round + b_rem.
+    ``blk`` = 1: nb - 1 batches of ``batch_size`` rows and the rest, each
+    widened with padding rows to a multiple of d_sz; the resident rows are
+    the N rows."""
+    B = min(batch_size, N)
+    if blk == 1:
+        nb = -(-N // B)
+        rem = N - (nb - 1) * B
+        return -(-B // d_sz) * d_sz, nb, -(-rem // d_sz) * d_sz, N
+    q = d_sz * blk
+    b_round = -(-B // q) * q
     nb = -(-N // b_round)
-    b_rem = -(-(N - (nb - 1) * b_round) // blk) * blk
+    b_rem = -(-(N - (nb - 1) * b_round) // q) * q
     return b_round, nb, b_rem, (nb - 1) * b_round + b_rem
 
 
 def epoch_plan(gen: torch.Generator, N: int, batch_size: int, blk: int,
-               n_rows: int) -> Plan:
+               n_rows: int, d_sz: int = 1) -> Plan:
     """One epoch's batches, from ``gen``: every real row exactly once.
 
     ``blk`` > 1: a permutation of the N // blk full data blocks; the full
     batches take the first (nb - 1) * F of them, the remainder the rest plus
     the partial and all-padding blocks. ``blk`` = 1: a permutation of the
-    rows (with alignment 1 the remainder holds exactly the rows left)."""
-    b_round, nb, _, _ = block_geometry(N, batch_size, blk)
+    rows, each batch widened to its :func:`block_geometry` width with the
+    padding row id N (none with ``d_sz`` = 1)."""
+    b_round, nb, b_rem, _ = block_geometry(N, batch_size, blk, d_sz)
     if blk > 1:
         F = b_round // blk
         perm = torch.randperm(N // blk, generator=gen).numpy()
@@ -151,20 +223,91 @@ def epoch_plan(gen: torch.Generator, N: int, batch_size: int, blk: int,
         idx_rem = np.concatenate([perm[(nb - 1) * F:],
                                   np.arange(N // blk, n_rows // blk)])
         return idx_full, idx_rem
+    B = min(batch_size, N)
     perm = torch.randperm(N, generator=gen).numpy()
-    return (perm[:(nb - 1) * b_round].reshape(nb - 1, b_round),
-            perm[(nb - 1) * b_round:])
+    idx_full = perm[:(nb - 1) * B].reshape(nb - 1, B)
+    tail = perm[(nb - 1) * B:]
+    if b_round == B and b_rem == tail.size:
+        return idx_full, tail
+    return (np.concatenate([idx_full, np.full((nb - 1, b_round - B), N)],
+                           axis=1),
+            np.concatenate([tail, np.full(b_rem - tail.size, N)]))
 
 
-def program_choices(blk: int, stream: bool = False
-                    ) -> Tuple[bool, bool, bool]:
+def stratified_plan(perm: Callable[[int, int], np.ndarray], ep: int,
+                    blk: int, N: int, n_rows: int, b_round: int, nb: int,
+                    b_rem: int) -> Plan:
+    """Host-partition-stratified sampling (the JAX package's
+    _stratified_plan, engine.py:247-310): each of the ``ep`` partitions
+    (data rows: contiguous blocks of n_rows / ep resident rows) fills its
+    own shard of every batch from its own rows, so no row crosses data
+    rows. ``perm(p, n)`` is partition p's permutation of n units (the JAX
+    package draws it from fold_in(key, p)). Units are ``blk``-row blocks
+    (padding blocks included, so every batch runs masked) or single rows
+    padded with the row id N. Returns global resident ids, batch columns
+    [p F_p, (p + 1) F_p) holding partition p's picks."""
+    if n_rows % ep:
+        raise ValueError(f"{n_rows} resident rows over {ep} partitions")
+    rows_pp = n_rows // ep
+    unit = blk * ep if blk > 1 else ep
+    if b_round % unit or b_rem % unit:
+        raise ValueError(f"batches of {b_round} and {b_rem} rows do not "
+                         f"split into units of {unit}")
+    if blk > 1:
+        upp = rows_pp // blk
+        F_p, R_p = b_round // (blk * ep), b_rem // (blk * ep)
+        if (nb - 1) * F_p + R_p != upp:
+            raise ValueError("the plan does not cover every block once")
+        perms = np.stack([np.asarray(perm(p, upp)) + p * upp
+                          for p in range(ep)])
+    else:
+        F_p, R_p = b_round // ep, b_rem // ep
+        supply = (nb - 1) * F_p + R_p
+        parts = []
+        for p in range(ep):
+            n_local = min(rows_pp, max(0, N - p * rows_pp))
+            if supply < n_local:
+                raise ValueError("the plan does not cover every row once")
+            pp = np.asarray(perm(p, max(n_local, 1)))[:n_local] + p * rows_pp
+            parts.append(np.concatenate(
+                [pp, np.full(supply - n_local, N, pp.dtype)]))
+        perms = np.stack(parts)
+    idx_full = (perms[:, :(nb - 1) * F_p]
+                .reshape(ep, nb - 1, F_p).transpose(1, 0, 2)
+                .reshape(nb - 1, ep * F_p))
+    idx_rem = perms[:, (nb - 1) * F_p:].reshape(ep * R_p)
+    return idx_full, idx_rem
+
+
+def emulated_shards() -> Optional[Tuple[int, int]]:
+    """(P, D) of NA_TPU_EMULATE_PROC_SHARDS="P,D", or None."""
+    emul = os.environ.get("NA_TPU_EMULATE_PROC_SHARDS")
+    if not emul:
+        return None
+    p, d = (int(v) for v in emul.split(","))
+    return p, d
+
+
+def check_snp_axis(m_pad: int, n_snp: int) -> None:
+    """Raise unless each of ``n_snp`` SNP blocks is whole 32-bit words of
+    every packed row (the JAX package's message, engine.py:1616-1618)."""
+    if m_pad % (n_snp * SNP_QUANTUM):
+        raise ValueError(
+            f"m_pad={m_pad} is not divisible by n_snp={n_snp} x "
+            f"{SNP_QUANTUM}; choose a smaller snp mesh axis")
+
+
+def program_choices(blk: int, stream: bool = False, sharded: bool = False,
+                    rows_real: bool = True) -> Tuple[bool, bool, bool]:
     """(full_real, indexed, merged) from the JAX package's environment
     variables (see the module docstring): full batches run unmasked unless
-    NA_TPU_FORCE_MASKED=1; they are indexed under NA_TPU_INDEXED=1 when
-    they are unmasked whole blocks of resident rows (never when
-    ``stream``); logged epochs run merged (K4) unless NA_TPU_SPLIT_LOSS=1."""
-    full_real = os.environ.get("NA_TPU_FORCE_MASKED") != "1"
-    indexed = (full_real and blk > 1 and not stream
+    NA_TPU_FORCE_MASKED=1 or some may hold padding rows (not
+    ``rows_real``); they are indexed under NA_TPU_INDEXED=1 when they are
+    unmasked whole blocks of resident rows (never when ``stream`` or
+    ``sharded``: a grid gathers); logged epochs run merged (K4) unless
+    NA_TPU_SPLIT_LOSS=1."""
+    full_real = rows_real and os.environ.get("NA_TPU_FORCE_MASKED") != "1"
+    indexed = (full_real and blk > 1 and not stream and not sharded
                and os.environ.get("NA_TPU_INDEXED") == "1")
     merged = os.environ.get("NA_TPU_SPLIT_LOSS") != "1"
     return full_real, indexed, merged
@@ -176,11 +319,14 @@ def _sync(device: torch.device) -> None:
 
 
 class NeuralAdmixtureTrainer:
-    """Init -> epochs -> Q pass -> results, on ``cfg.device``."""
+    """Init -> epochs -> Q pass -> results, on ``cfg.device``, or, with
+    ``grid`` (a parallel.grid.Grid), as this rank's part of a run over a
+    grid of ranks, on the rank's device."""
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, grid: Optional[Grid] = None):
         setup_logging()
         self.cfg = cfg
+        self.grid = grid
         self.ks = sorted(cfg.ks)
         self.logged_losses: Dict[int, float] = {}
         self.epoch_seconds: List[float] = []
@@ -191,6 +337,9 @@ class NeuralAdmixtureTrainer:
         # results (to numpy, Fst); and of the last checkpoint save and the
         # load.
         self.phase_seconds: Dict[str, float] = {}
+        # On a grid whose profile is on (Grid.start_profile): each epoch's
+        # parallel.grid.GridProfile.
+        self.epoch_profiles: List = []
         self._streamed = False
         self.stager: Optional[HostStager] = None
 
@@ -204,7 +353,8 @@ class NeuralAdmixtureTrainer:
                         V: np.ndarray, M: int, N: int,
                         init_params: Optional[Dict] = None,
                         plans: Optional[Callable[[int], Plan]] = None,
-                        pops: Optional[np.ndarray] = None
+                        pops: Optional[np.ndarray] = None,
+                        host_rows: Optional[Tuple[int, int]] = None
                         ) -> Tuple[List[np.ndarray], List[np.ndarray], Dict]:
         """Train and return (Qs, Ps, params): Q (N, k) in input row order
         and P (M, k) per K ascending, and the trained parameter dict (numpy,
@@ -215,9 +365,15 @@ class NeuralAdmixtureTrainer:
         input row order, which turn on supervised mode. ``init_params``:
         the initial parameter dict (decoders included) instead of building
         one from V, P_init and draws; ``plans``: epoch -> (idx_full,
-        idx_rem) instead of drawing them."""
+        idx_rem) instead of drawing them.
+
+        On a grid, ``packed`` holds this data row's input rows, ``host_rows``
+        = (start, end) of :meth:`sample_shard` (checked when given), at full
+        width; everything else is global, and every rank returns the whole
+        results."""
         cfg = self.cfg
-        device = torch.device(cfg.device)
+        grid = self.grid
+        device = grid.device if grid is not None else torch.device(cfg.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("training was asked for a CUDA device, but no "
                                "CUDA device is available.")
@@ -229,45 +385,89 @@ class NeuralAdmixtureTrainer:
         supervised = pops is not None
         self._supervised = supervised
 
+        # The data axis of the geometry (d_sz) and the processes of the
+        # per-process pre-shuffle (ep; 0: one global pre-shuffle).
+        emul = emulated_shards()
+        if grid is not None:
+            self._pick_mesh(m_pad, grid.n_data * grid.n_snp, device)
+            if cfg.checkpoint_every or cfg.resume:
+                raise not_ported("Checkpoints on a grid of ranks "
+                                 "(--checkpoint_every, --resume)", ITEM_12B)
+            d_sz = grid.n_data
+            ep = d_sz if blk > 1 and d_sz > 1 else 0
+        elif emul is not None:
+            ep, d_sz = (emul if blk > 1 else (0, emul[1]))
+        else:
+            ep, d_sz = 0, 1
+        b_round, nb, b_rem, n_rows = block_geometry(N, batch_size, blk, d_sz)
+        strat = 0
+        if os.environ.get("NA_TPU_STRATIFIED") == "1":
+            parts = (grid.n_data if grid is not None
+                     else emul[0] if emul is not None and blk > 1 else 0)
+            strat = parts if parts > 1 else 0
+
         # Layout: the one-time row pre-shuffle for block sampling, then zero
         # rows up to whole blocks of whole batches; resident on the device,
         # or, streamed, only the map from resident rows to host rows.
         t_phase = time.perf_counter()
         self._row_order = None
         if blk > 1:
-            self._row_order = np.random.default_rng(cfg.seed).permutation(N)
-        b_round, nb, _, n_rows = block_geometry(N, batch_size, blk)
-        stream = self._capacity_policy(n_rows * W, m_pad, device)
-        host = np.ascontiguousarray(packed[:N])
-        no_missing = not packed_has_missing(host)
-        self.stager = None
-        if stream:
-            resident = None
-            self._host_row = np.concatenate([
-                np.arange(N) if self._row_order is None else self._row_order,
-                np.full(n_rows - N, -1)]).astype(np.int64)
-            self.stager = HostStager(device, max(b_round,
-                                                 min(N, INFER_BATCH)), W)
+            self._row_order = (
+                shard_row_order(N, cfg.seed, ep, rows_per_process(
+                    N, d_sz, ep, shard_quantum(d_sz, blk))) if ep
+                else np.random.default_rng(cfg.seed).permutation(N))
+        host, stream, self.stager = None, False, None
+        if grid is not None:
+            rows_pp, resident, no_missing = self._grid_layout(
+                packed, N, m_pad, b_round, host_rows, device)
+            n_rows = grid.n_data * rows_pp
+            m_loc = m_pad // grid.n_snp
+            col_mask = (torch.arange(grid.s * m_loc, (grid.s + 1) * m_loc,
+                                     device=device) < M).to(torch.float32)
         else:
-            data = host if self._row_order is None else host[self._row_order]
-            if n_rows > N:
-                data = np.concatenate(
-                    [data, np.zeros((n_rows - N, W), data.dtype)])
-            resident = torch.from_numpy(np.ascontiguousarray(data)).to(device)
-        col_mask = (torch.arange(m_pad, device=device) < M).to(torch.float32)
+            stream = self._capacity_policy(
+                n_rows * W, cfg.batch_size * m_pad // 4,
+                self._plane_state_bytes(m_pad), device)
+            host = np.ascontiguousarray(packed[:N])
+            no_missing = not packed_has_missing(host)
+            if stream:
+                resident = None
+                self._host_row = np.concatenate([
+                    np.arange(N) if self._row_order is None
+                    else self._row_order,
+                    np.full(n_rows - N, -1)]).astype(np.int64)
+                self.stager = HostStager(device, max(b_round,
+                                                     min(N, INFER_BATCH)), W)
+            else:
+                data = (host if self._row_order is None
+                        else host[self._row_order])
+                if n_rows > N:
+                    data = np.concatenate(
+                        [data, np.zeros((n_rows - N, W), data.dtype)])
+                resident = torch.from_numpy(
+                    np.ascontiguousarray(data)).to(device)
+            col_mask = (torch.arange(m_pad, device=device) < M).to(
+                torch.float32)
         pops_dev = self._prepare_pops(pops, N, device) if supervised else None
         t_phase = self._lap("layout", t_phase, device)
 
         if init_params is None:
             init_params = qp.init_params(generator(cfg.seed, 0), V.T, P_init,
                                          cfg.hidden_size, self.ks, m_pad)
+        if grid is not None:
+            init_params = shard_params(init_params, grid.n_snp, grid.s)
         model = qp.params_from_numpy(init_params, self.ks, device)
         opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate,
                                betas=(0.9, 0.95), eps=1e-8)
         if plans is None:
             def plans(epoch):
+                if strat:
+                    return stratified_plan(
+                        lambda p, n: torch.randperm(n, generator=generator(
+                            cfg.seed, 1, epoch, p)).numpy(),
+                        strat, blk, N, n_rows, b_round, nb, b_rem)
                 return epoch_plan(generator(cfg.seed, 1, epoch), N,
-                                  batch_size, blk, n_rows)
+                                  batch_size, blk, n_rows, d_sz)
         start_epoch = 0
         if cfg.resume and cfg.checkpoint_path:
             start_epoch = self._load_checkpoint(model, opt)
@@ -278,16 +478,56 @@ class NeuralAdmixtureTrainer:
         log.info("")
         if start_epoch:
             log.info(f"    Resuming from epoch {start_epoch}.")
-        self._run_epochs(model, opt, start_epoch, plans, N, n_rows, blk,
-                         host, resident, col_mask, pops_dev, no_missing,
-                         device)
+        # Padding rows reach a full batch under the stratified plan, and
+        # per-row sampling widens full batches to the data axis.
+        full_real, indexed, merged = program_choices(
+            blk, stream, grid is not None,
+            strat == 0 and (blk > 1 or b_round == batch_size))
+        if grid is None:
+            steps = self._batches(plans, start_epoch, N, n_rows, blk, host,
+                                  resident, indexed, device)
+
+            def step_fn(full, rows, xb, blk_idx, logged):
+                row_w = (torch.ones(rows.shape[0], device=device)
+                         if blk_idx is not None
+                         else (rows < N).to(torch.float32))
+                loss, qs = fused_training_loss(
+                    model, xb, col_mask, row_w, not (full and full_real),
+                    no_missing, logged, merged, blk_idx, blk)
+                if supervised:
+                    pops_b = pops_dev[torch.clamp(rows, max=N - 1)]
+                    loss = loss + cfg.supervised_loss_weight * \
+                        softmax_cross_entropy_sum(
+                            qs[smallest_head(qs)], pops_b, row_w)
+                loss.backward()
+                return loss
+        else:
+            steps = self._grid_batches(plans, N, rows_pp, blk, resident,
+                                       device)
+            lag = make_sharded_loss_and_grad(grid, supervised,
+                                             cfg.supervised_loss_weight)
+
+            def step_fn(full, rows, xb, blk_idx, logged):
+                return lag(model, xb, (rows < N).to(torch.float32), col_mask,
+                           pops_dev[torch.clamp(rows, max=N - 1)]
+                           if supervised else None,
+                           not (full and full_real), no_missing, logged,
+                           merged)
+        self._run_epochs(model, opt, start_epoch, steps, step_fn, N,
+                         supervised, device)
 
         t_phase = time.perf_counter()
         with torch.no_grad():
-            qs = chunked_forward(
-                lambda b: model(b, no_missing),
-                host if stream else resident, N, min(N, INFER_BATCH),
-                device, order=self._row_order, stager=self.stager)
+            if grid is None:
+                qs = chunked_forward(
+                    lambda b: model(b, no_missing),
+                    host if stream else resident, N, min(N, INFER_BATCH),
+                    device, order=self._row_order, stager=self.stager)
+            else:
+                qs = infer_q_sharded(
+                    model, grid, resident,
+                    min(rows_pp, max(0, N - grid.d * rows_pp)), INFER_BATCH,
+                    no_missing)
         if self.stager is not None:
             self.stager.close()
         Qs = [qs[f"k{k}"] for k in self.ks]
@@ -297,12 +537,48 @@ class NeuralAdmixtureTrainer:
         log.info("")
         log.info("    Training finished!")
         log.info("")
-        params = qp.params_to_numpy(model)
+        params = to_host(model, grid)
         self.display_divergences(params, M)
         Ps = [params["decoders"][f"k{k}"].T[:M].astype(np.float32)
               for k in self.ks]
         self._lap("results", t_phase, device)
         return Qs, Ps, params
+
+    def _grid_layout(self, packed: np.ndarray, N: int, m_pad: int,
+                     b_round: int, host_rows, device):
+        """This rank's resident block: its data row's rows (through the
+        per-process pre-shuffle under block sampling), zero-padded to
+        rows_per_process, its SNP block of them on the device. Returns
+        (rows_pp, the block, no_missing over the whole grid)."""
+        grid = self.grid
+        start, end, rows_pp = self.sample_shard(m_pad, N)
+        if host_rows is not None and tuple(host_rows) != (start, end):
+            raise ValueError(
+                f"launch_training got rows {tuple(host_rows)} but data row "
+                f"{grid.d} owns [{start}, {end}); read the data with "
+                "NeuralAdmixtureTrainer.sample_shard")
+        n_local = end - start
+        if packed.shape[0] < n_local:
+            raise ValueError(f"packed holds {packed.shape[0]} rows; data row "
+                             f"{grid.d} owns {n_local}")
+        self._capacity_policy(
+            rows_pp * m_pad // 4 // grid.n_snp,
+            b_round // grid.n_data * m_pad // 4 // grid.n_snp,
+            self._plane_state_bytes(m_pad) // grid.n_snp, device)
+        w_loc = m_pad // 4 // grid.n_snp
+        cols = slice(grid.s * w_loc, (grid.s + 1) * w_loc)
+        local = np.asarray(packed)[:n_local, cols]
+        if self._row_order is not None:
+            local = local[self._row_order[start:end] - start]
+        block = np.zeros((rows_pp, w_loc), np.uint8)
+        block[:n_local] = local
+        # The kernels' no-missing variant only where no rank's block has a
+        # code 3 (a batch holds rows of every data row).
+        missing = torch.tensor([int(packed_has_missing(block))],
+                               device=grid.comm_device)
+        grid.psum_(missing, (DATA_AXIS, SNP_AXIS), "has_missing")
+        return rows_pp, torch.from_numpy(block).to(device), \
+            int(missing.item()) == 0
 
     def _batches(self, plans, start_epoch: int, N: int, n_rows: int,
                  blk: int, host: np.ndarray, resident, indexed: bool,
@@ -356,15 +632,64 @@ class NeuralAdmixtureTrainer:
             if staged is not None:
                 staged.close()
 
-    def _run_epochs(self, model, opt, start_epoch: int, plans, N: int,
-                    n_rows: int, blk: int, host: np.ndarray, resident,
-                    col_mask, pops_dev, no_missing: bool, device) -> None:
-        """The epoch loop from ``start_epoch``: the steps, the logged losses,
-        the periodic checkpoints and the SIGTERM save (the JAX package's
-        _run_epochs, engine.py:1298-1445)."""
+    def _grid_batches(self, plans, N: int, rows_pp: int, blk: int,
+                      resident: torch.Tensor, device) -> Iterator[Tuple]:
+        """Every step of a grid rank, as :meth:`_batches` yields them: the
+        global resident ids of its data row's slice of the batch, and the
+        slice's packed rows of its SNP block, from its own resident block
+        and, for rows held by other data rows, over the data group (one
+        all_to_all; skipped on every rank when every slice is local). The
+        exchange's indices are arithmetic on the plan, the same on every
+        rank; an epoch's go to the device at once."""
+        grid = self.grid
+        D, d = grid.n_data, grid.d
+        w_loc = resident.shape[1]
+        for epoch in range(self.cfg.epochs):
+            idx_full, idx_rem = plans(epoch)
+            steps, parts = [], []
+            for idx in list(idx_full) + [idx_rem]:
+                idx = np.asarray(idx, np.int64)
+                rows = (idx[:, None] * blk + np.arange(blk)).reshape(-1) \
+                    if blk > 1 else idx
+                safe = rows if blk > 1 else np.minimum(rows, N - 1)
+                # The data row that holds each position's row, per data
+                # row's slice of the batch.
+                owner = (safe // rows_pp).reshape(D, -1)
+                local = (safe % rows_pp).reshape(D, -1)
+                parts.append(rows.reshape(D, -1)[d])
+                if (owner == np.arange(D)[:, None]).all():
+                    parts.append(local[d])
+                    steps.append(None)
+                    continue
+                send = [local[q][owner[q] == d] for q in range(D)]
+                recv = [np.nonzero(owner[d] == p)[0] for p in range(D)]
+                parts += [np.concatenate(send), np.concatenate(recv)]
+                steps.append(([len(a) for a in recv], [len(a) for a in send]))
+            flat = torch.from_numpy(np.concatenate(parts)).to(device)
+            views = iter(flat.split([len(a) for a in parts]))
+            for i, counts in enumerate(steps):
+                rows = next(views)
+                if counts is None:
+                    xb = resident.index_select(0, next(views))
+                else:
+                    send_buf = resident.index_select(0, next(views))
+                    recv_pos = next(views)
+                    out = torch.empty(len(recv_pos), w_loc, dtype=torch.uint8,
+                                      device=device)
+                    grid.all_to_all_rows(out, send_buf, counts[0], counts[1],
+                                         "exchange")
+                    xb = torch.empty_like(out).index_copy_(0, recv_pos, out)
+                yield epoch, i < len(steps) - 1, rows, xb, None
+
+    def _run_epochs(self, model, opt, start_epoch: int, steps, step_fn,
+                    N: int, supervised: bool, device) -> None:
+        """The epoch loop from ``start_epoch`` over ``steps`` (what
+        :meth:`_batches` or :meth:`_grid_batches` yields), each step's loss
+        and gradients from ``step_fn(full, rows, xb, blk_idx, logged)``: the
+        optimizer steps, the logged losses, the periodic checkpoints and
+        the SIGTERM save (the JAX package's _run_epochs,
+        engine.py:1298-1445)."""
         cfg = self.cfg
-        full_real, indexed, merged = program_choices(blk, resident is None)
-        supervised = pops_dev is not None
         log_every = 2 if supervised else cfg.log_every
         ckpt_on = bool(cfg.checkpoint_every and cfg.checkpoint_path)
         # Preemption: with checkpoints on, SIGTERM (what preemptible
@@ -386,25 +711,13 @@ class NeuralAdmixtureTrainer:
         _sync(device)
         t_train = t_epoch = time.perf_counter()
         loss_sum = None
-        steps = self._batches(plans, start_epoch, N, n_rows, blk, host,
-                              resident, indexed, device)
+        grid = self.grid
         try:
             with closing(steps):
                 for epoch, full, rows, xb, blk_idx in steps:
                     logged = epoch % log_every == 0
-                    row_w = (torch.ones(rows.shape[0], device=device)
-                             if blk_idx is not None
-                             else (rows < N).to(torch.float32))
                     opt.zero_grad(set_to_none=True)
-                    loss, qs = fused_training_loss(
-                        model, xb, col_mask, row_w, not (full and full_real),
-                        no_missing, logged, merged, blk_idx, blk)
-                    if supervised:
-                        pops_b = pops_dev[torch.clamp(rows, max=N - 1)]
-                        loss = loss + cfg.supervised_loss_weight * \
-                            softmax_cross_entropy_sum(
-                                qs[smallest_head(qs)], pops_b, row_w)
-                    loss.backward()
+                    loss = step_fn(full, rows, xb, blk_idx, logged)
                     opt.step()
                     model.restrict_P()
                     if logged:
@@ -422,6 +735,8 @@ class NeuralAdmixtureTrainer:
                     _sync(device)
                     now = time.perf_counter()
                     self.epoch_seconds.append(now - t_epoch)
+                    if grid is not None and grid.profile is not None:
+                        self.epoch_profiles.append(grid.lap_profile())
                     if cfg.progress:
                         print(f"\r    Epochs: {epoch + 1}/{cfg.epochs}",
                               end="", file=sys.stderr, flush=True)
@@ -453,24 +768,31 @@ class NeuralAdmixtureTrainer:
                      f"{N * epochs_run / self.train_seconds:,.0f} samples/s "
                      f"({self.train_seconds:.2f}s for {epochs_run} epochs).")
 
-    def _capacity_policy(self, data_bytes: int, m_pad: int, device) -> bool:
+    def _capacity_policy(self, data_bytes: int, batch_bytes: int,
+                         plane_bytes: int, device) -> bool:
         """Resident or host-streamed training (sets ``self._streamed``), by
         the JAX package's estimate for its kernels (engine.py:1085-1160),
-        which decode in registers: no f32 unpack transient. On one device:
-        the resident packed rows, one packed batch and the SNP-plane state
-        (:meth:`_plane_state_bytes`) against HBM_BUDGET_FRAC of the
-        capacity; streamed, the same without the resident rows."""
+        which decode in registers: no f32 unpack transient. Per device: the
+        resident packed rows, one packed batch and the SNP-plane state
+        (:meth:`_plane_state_bytes`; on a grid, each rank's block of each)
+        against HBM_BUDGET_FRAC of the capacity; streamed, the same without
+        the resident rows. A grid does not stream yet (ROADMAP.md item
+        12b): where it would, this raises."""
         cfg = self.cfg
         cap_gb = hbm_capacity_bytes(device) / 2**30
-        batch_bytes = cfg.batch_size * m_pad // 4
-        plane = self._plane_state_bytes(m_pad)
-        per_chip = data_bytes + batch_bytes + plane
-        per_chip_stream = batch_bytes + plane
+        per_chip = data_bytes + batch_bytes + plane_bytes
+        per_chip_stream = batch_bytes + plane_bytes
         budget = HBM_BUDGET_FRAC * cap_gb * 2**30
         resident_fits = per_chip <= budget
         stream = cfg.stream
         if stream is None:
             stream = not resident_fits and per_chip_stream <= budget
+        if stream and self.grid is not None:
+            raise not_ported(
+                "Host streaming on a grid of ranks (--stream 1, or an auto "
+                "policy that would stream: estimated per-rank need "
+                f"~{per_chip / 2**30:.1f} GiB against ~{cap_gb:.0f} GiB)",
+                ITEM_12B)
         self._streamed = bool(stream)
         if stream:
             log.info(
@@ -491,6 +813,62 @@ class NeuralAdmixtureTrainer:
         moments (the JAX package counts three, engine.py:1553-1557)."""
         plane_rows = self.cfg.n_components + sum(self.ks)
         return m_pad * plane_rows * 4 * 4
+
+    def _auto_snp_axis(self, n_dev: int, m_pad: int, device=None) -> int:
+        """The auto grid policy (the JAX package's _auto_snp_axis,
+        engine.py:1559-1578): ranks go to the snp axis, doubling it, only
+        while the SNP-plane state plus a batch's packed scratch exceeds the
+        per-device budget; otherwise all data-parallel (fewer collectives).
+        The budget is NA_TPU_HBM_BUDGET_GB, or half the device's capacity
+        (utils/hbm.py: the card's memory), where the JAX package's default
+        is 8 GiB, half of a v5e's 16."""
+        env = os.environ.get("NA_TPU_HBM_BUDGET_GB")
+        budget = (float(env) * 2**30 if env
+                  else hbm_capacity_bytes(device) / 2)
+        plane_bytes = self._plane_state_bytes(m_pad) \
+            + self.cfg.batch_size * m_pad
+        n_snp = 1
+        while (plane_bytes / n_snp > budget and n_snp < n_dev
+               and n_dev % (n_snp * 2) == 0
+               and m_pad % (n_snp * 2 * SNP_QUANTUM) == 0):
+            n_snp *= 2
+        return n_snp
+
+    def _pick_mesh(self, m_pad: int, n_dev: int, device=None
+                   ) -> Tuple[int, int]:
+        """The grid (n_data, n_snp) over ``n_dev`` ranks: cfg.mesh_shape, the
+        trainer's grid, or the auto policy (the JAX package's _pick_mesh,
+        engine.py:1601-1630). Raises where a rank's SNP block would not be
+        whole 32-bit words of every packed row."""
+        shape = self.cfg.mesh_shape or (self.grid.shape if self.grid
+                                        else None)
+        if shape is None:
+            n_snp = (self._auto_snp_axis(n_dev, m_pad, device)
+                     if n_dev > 1 else 1)
+            shape = (n_dev // n_snp, n_snp)
+        n_data, n_snp = (int(v) for v in shape)
+        check_snp_axis(m_pad, n_snp)
+        if self.grid is not None and (n_data, n_snp) != self.grid.shape:
+            raise ValueError(f"mesh_shape {(n_data, n_snp)} but the grid is "
+                             f"{self.grid.shape}")
+        return n_data, n_snp
+
+    def data_axis_size(self) -> int:
+        """Data rows of the grid (1 without one)."""
+        return self.grid.n_data if self.grid is not None else 1
+
+    def sample_shard(self, m_pad: int, N: int) -> Tuple[int, int, int]:
+        """This data row's input rows (start, end, rows_per_process), with
+        the block-sampling row quantum (resident rows must tile exactly into
+        whole batches of whole blocks): what the input pipeline reads, and
+        what launch_training's layout assumes. ``m_pad`` is checked against
+        the grid."""
+        if self.grid is not None:
+            self._pick_mesh(m_pad, self.grid.n_data * self.grid.n_snp)
+        blk = max(1, self.cfg.sample_block)
+        D = self.data_axis_size()
+        q = shard_quantum(D, blk) if blk > 1 else 1
+        return host_sample_shard(N, D, q, self.grid.d if self.grid else 0, D)
 
     def _ckpt_meta(self) -> Dict:
         """The hyperparameters that must match between save and resume (the

@@ -19,6 +19,12 @@ rows labelled c, missing (3) included, as the reference does
 (:func:`init_p_supervised_packed`, on the packed rows' device;
 :func:`init_p_supervised` from a dense (N, M) matrix on the host).
 
+Over the data rows of a grid of ranks (``rows`` = (start, end) and
+``grid``; the JAX package's multi-host ``rows``, train/init.py:116-124,
+:176-182): the packed rows are this data row's; its PCA coordinates are
+gathered over the data group and every rank fits the same GMM, and the
+supervised sums and counts are summed over it.
+
 The packed rows are a tensor on the device that computes, or a host array
 with that ``device``: uploaded once, or with ``stream`` read block by block
 through the stager (io/stage.py; the JAX package's host-streamed
@@ -35,6 +41,7 @@ from ..io.stage import PackedRows
 from ..ops.gmm import fit_gmm
 from ..ops.pack import unpack_genotypes
 from ..ops.rsvd import block_rows_for
+from ..parallel.distributed import allsum_hosts, gather_ragged_rows
 from ..utils.seeding import generator
 
 
@@ -59,11 +66,18 @@ def project_pca(packed, V: np.ndarray, N: int, block_bytes: int = 1 << 30,
 def init_p_unsupervised(packed, V: np.ndarray, N: int, M: int,
                         ks: List[int], seed: int,
                         x_pca: Optional[torch.Tensor] = None, device=None,
-                        stream=None) -> np.ndarray:
+                        stream=None, rows=None, grid=None) -> np.ndarray:
     """GMM-based P init: (sum(ks), M) float32, rows per K ascending.
-    ``x_pca``: precomputed :func:`project_pca` coordinates."""
+    ``x_pca``: precomputed :func:`project_pca` coordinates (of all N rows).
+    ``rows``, ``grid``: ``packed`` holds rows [start, end) of a grid's data
+    row (see the module docstring)."""
     if x_pca is None:
-        x_pca = project_pca(packed, V, N, device=device, stream=stream)
+        start, end = rows if rows is not None else (0, N)
+        x_pca = project_pca(packed, V, end - start, device=device,
+                            stream=stream)
+        if grid is not None:
+            x_pca = torch.from_numpy(gather_ragged_rows(
+                x_pca.cpu().numpy(), grid))
     X = x_pca.detach().to("cpu", torch.float32)
     Vh = torch.from_numpy(np.asarray(V, np.float32))  # (D, M)
     blocks = []
@@ -95,14 +109,18 @@ def init_p_supervised(G: np.ndarray, y: np.ndarray, K: int) -> np.ndarray:
 
 def init_p_supervised_packed(packed, y: np.ndarray, K: int, M: int,
                              block_bytes: int = 1 << 30, device=None,
-                             stream=None) -> np.ndarray:
+                             stream=None, rows=None, grid=None
+                             ) -> np.ndarray:
     """(K, M) float32: row c is the mean raw code (0..3, missing 3
     included) over the packed rows (N, W) uint8 labelled c by ``y`` (N,).
 
     Runs on the packed rows' device (``device`` for a host array) in row
     blocks of about ``block_bytes`` of fp64 codes. The per-class sums are
     fp64 adds of small integers (``index_add_``), exact in any order and
-    free of the TF32 setting."""
+    free of the TF32 setting. ``rows``, ``grid``: ``packed`` holds rows
+    [start, end) of a grid's data row; ``y`` stays global."""
+    if rows is not None:
+        y = np.asarray(y)[rows[0]:rows[1]]
     N = len(y)
     src = PackedRows(packed, N, block_bytes // (8 * 4 * packed.shape[1]),
                      device, stream)
@@ -114,5 +132,8 @@ def init_p_supervised_packed(packed, y: np.ndarray, K: int, M: int,
         sums.index_add_(0, y_t[i:i + blk.shape[0]],
                         unpack_genotypes(blk).to(torch.float64))
     counts = torch.bincount(y_t, minlength=K).to(torch.float64)
+    if grid is not None:
+        sums = torch.from_numpy(allsum_hosts(sums.cpu().numpy(), grid))
+        counts = torch.from_numpy(allsum_hosts(counts.cpu().numpy(), grid))
     means = sums[:, :M] / torch.clamp_min(counts[:, None], 1.0)
     return means.to(torch.float32).cpu().numpy()

@@ -1,41 +1,52 @@
 """Train mode: read -> pack -> RSVD -> init P -> train -> save.
 
 The JAX package's train/run.py ``main_train`` for the ported slice: a
-PLINK BED, a PGEN or a VCF on one device, one K (``--k``) or a K range
-(``--min_k`` .. ``--max_k``, one head per K, trained jointly), unsupervised
-or supervised (``--pops_path``, one K), with resumable checkpoints
+PLINK BED, a PGEN or a VCF, one K (``--k``) or a K range (``--min_k`` ..
+``--max_k``, one head per K, trained jointly), unsupervised or supervised
+(``--pops_path``, one K), on one device with resumable checkpoints
 (``--checkpoint_every``, ``--resume``, SIGTERM) and host streaming
-(``--stream``). Resident, the packed rows go to the device once for the
-RSVD and the P init and once more for training; streamed (``--stream 1``,
-or ``auto`` when they do not fit), no phase uploads the whole packed
-matrix: the RSVD, the PCA projection or the supervised means, training,
-the Q pass and the log-likelihood read it block by block through the stager
-(io/stage.py). The (N, M) genotype matrix never exists. Everything else
-raises NotImplementedError naming the ROADMAP.md item that ports it.
+(``--stream``), or over a grid of ranks. Resident, the packed rows go to the
+device once for the RSVD and the P init and once more for training;
+streamed (``--stream 1``, or ``auto`` when they do not fit), no phase
+uploads the whole packed matrix: the RSVD, the PCA projection or the
+supervised means, training, the Q pass and the log-likelihood read it block
+by block through the stager (io/stage.py). The (N, M) genotype matrix never
+exists.
+
+A grid (``--num_gpus N > 1``, ``--mesh DxS``, or several hosts through the
+NA_TPU_* variables; parallel/): each host starts its ranks, every rank of
+data row d reads only that row's sample rows (the trainer's sample_shard),
+the minor-allele flip follows the code counts of every data row, the RSVD
+and the P init run on the data row's rows with their sketch, coordinates or
+sums joined over the data group, training runs sharded
+(train/engine.py), the log-likelihood is the sum of each rank's part (its
+rows, its SNP block), and rank 0 alone writes. Streaming and checkpoints on
+a grid raise (ROADMAP.md Queue 1 item 12b); everything else outside the
+slice raises NotImplementedError naming the ROADMAP.md item that ports it.
 """
+import logging
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..infer import read_packed, select_device
+from ..infer import (grid_devices, input_dims, read_packed, read_packed_rows,
+                     select_device)
 from ..io.snp_reader import input_format
 from ..io.torch_interop import save_pt_checkpoint
 from ..io.writers import save_checkpoint, save_config, write_outputs
 from ..ops.loglikelihood import loglikelihood_packed
 from ..ops.rsvd import resident_bytes, rsvd
+from ..parallel.distributed import is_master, spawn_grid
+from ..parallel.grid import DATA_AXIS, SNP_AXIS
 from ..utils.hbm import should_stream_host
 from ..utils.logger import log, setup_logging
-from .engine import NeuralAdmixtureTrainer, TrainConfig
+from .engine import ITEM_12B, NeuralAdmixtureTrainer, TrainConfig, not_ported
 from .init import (encode_populations, init_p_supervised_packed,
                    init_p_unsupervised)
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1 "
-                               f"item {item}.")
-
+ITEM_13 = "13 (CV, restarts and the bench)"
 
 # --stream as the JAX package's train/run.py normalises it: YAML configs
 # bypass argparse's choices and may give ints or bools.
@@ -50,13 +61,26 @@ def check_ported(args) -> None:
     if stream not in STREAM_MAP:
         raise ValueError(f"--stream must be auto, 0, or 1; got {stream!r}")
     if args.cv:
-        raise _not_ported("--cv", "13 (CV, restarts and the bench)")
+        raise not_ported("--cv", ITEM_13)
     if int(args.init_restarts or 1) > 1:
-        raise _not_ported("--init_restarts > 1", "13 (CV, restarts and the "
-                          "bench)")
+        raise not_ported("--init_restarts > 1", ITEM_13)
     if args.profile_dir:
-        raise _not_ported("--profile_dir (a profiler trace of the epochs)",
-                          "13 (CV, restarts and the bench)")
+        raise not_ported("--profile_dir (a profiler trace of the epochs)",
+                         ITEM_13)
+
+
+def _resolve_mesh_shape(args, hosts=None):
+    """(n_data, n_snp) from --mesh 'DxS', else --num_gpus N > 0 cards on
+    every host, all data-parallel (the reference's semantics), else None:
+    the trainer's auto policy over one CPU rank per host (the JAX
+    package's _resolve_mesh_shape, train/run.py:45-58)."""
+    mesh = getattr(args, "mesh", None)
+    if mesh:
+        n_data, n_snp = (int(v) for v in mesh.lower().split("x"))
+        return (n_data, n_snp)
+    if int(args.num_gpus) > 0:
+        return ((hosts.count if hosts else 1) * int(args.num_gpus), 1)
+    return None
 
 
 def read_pops(pops_path: str):
@@ -67,32 +91,165 @@ def read_pops(pops_path: str):
         return [p.strip() for p in fb.readlines() if p.strip()]
 
 
-def main_train(args, t0: float) -> int:
+def _ks(args):
+    """(K, min_k, max_k, ks) of --k or --min_k/--max_k."""
+    if args.k is not None:
+        return int(args.k), None, None, [int(args.k)]
+    return None, int(args.min_k), int(args.max_k), \
+        list(range(int(args.min_k), int(args.max_k) + 1))
+
+
+def _train_config(args, ks, stream, device: str, **kw) -> TrainConfig:
+    return TrainConfig(
+        epochs=int(args.epochs), batch_size=int(args.batch_size),
+        learning_rate=float(args.learning_rate), seed=int(args.seed),
+        hidden_size=int(args.hidden_size),
+        n_components=int(args.n_components), ks=ks,
+        supervised_loss_weight=float(args.supervised_loss_weight),
+        sample_block=int(args.sample_block or 1), device=device,
+        stream=stream, **kw)
+
+
+def _labels(args, N: int, K):
+    """The numeric labels of --pops_path (None without it)."""
+    if not args.pops_path:
+        return None
+    pops = read_pops(args.pops_path)
+    if K is None:
+        raise ValueError("Supervised mode requires --k (a single K).")
+    if len(pops) != N:
+        raise ValueError(f"Population file has {len(pops)} labels but "
+                         f"the data has {N} samples.")
+    return encode_populations(pops, K)[0]
+
+
+def _save(args, params, Qs, Ps, ks, M: int, n_features: int) -> None:
+    K, min_k, max_k, _ = _ks(args)
+    Path(args.save_dir).mkdir(parents=True, exist_ok=True)
+    save_checkpoint(params, args.name, args.save_dir, strip_decoders=True)
+    save_pt_checkpoint(params, args.name, args.save_dir, num_snps=M)
+    save_config(args.name, args.save_dir, ks=ks, num_features=n_features,
+                hidden_size=int(args.hidden_size), num_snps=M)
+    write_outputs(Qs, args.name, K, min_k, max_k, args.save_dir, Ps)
+
+
+def _log_lls(lls, ks, K) -> None:
+    for k, ll in zip(ks, lls):
+        suffix = "" if K is not None else f" for K={k}"
+        # ':2f' (not ':.2f') is the reference's own format, kept for log
+        # scrapers.
+        log.info(f"    Log-likelihood{suffix}: {ll:2f}.")
+
+
+def _train_grid(args, t0: float, hosts) -> int:
+    """Start this host's ranks of the grid (each runs :func:`_train_rank`)."""
+    ks = _ks(args)[3]
+    stream = STREAM_MAP[getattr(args, "stream", "auto")]
+    if stream:
+        raise not_ported("--stream 1 on a grid of ranks", ITEM_12B)
+    if int(args.checkpoint_every or 0) or args.resume:
+        raise not_ported("--checkpoint_every and --resume on a grid of "
+                         "ranks", ITEM_12B)
+    N, M = input_dims(args.data_path)
+    shape = _resolve_mesh_shape(args, hosts)
+    n_ranks = (shape[0] * shape[1] if shape else
+               (hosts.count if hosts else 1))
+    # The grid of --mesh, of --num_gpus, or the auto policy's; the snp axis
+    # is checked against the padded width before any rank starts.
+    shape = NeuralAdmixtureTrainer(_train_config(
+        args, ks, stream, "cpu", mesh_shape=shape))._pick_mesh(
+            -(-M // 2048) * 2048, n_ranks)
+    n_local = n_ranks // (hosts.count if hosts else 1)
+    devices, backend = grid_devices(int(args.num_gpus), shape, n_local,
+                                    "training")
+    spawn_grid(_train_rank, *shape, devices, backend,
+               args=(args, stream, N, M, t0), hosts=hosts,
+               threads=int(args.threads))
+    return 0
+
+
+def _train_rank(grid, args, stream, N: int, M: int, t0: float) -> None:
+    """One rank of a grid's ``train``: this data row's rows, the set-up
+    joined over the data group, sharded training, the log-likelihood summed
+    over the grid; rank 0 writes."""
+    K, _, _, ks = _ks(args)
+    trainer = NeuralAdmixtureTrainer(_train_config(
+        args, ks, stream, str(grid.device), mesh_shape=grid.shape,
+        progress=not args.no_progress and is_master()), grid=grid)
+    fmt = input_format(args.data_path)
+    log.info(f"    Input format is {fmt}.")
+    start, end, _ = trainer.sample_shard(-(-M // 2048) * 2048, N)
+    packed = read_packed_rows(args.data_path, start, end, M, grid)
+    log.info(f"    Data contains {N} samples and {M} SNPs (rank {grid.rank} "
+             f"of a {grid.n_data}x{grid.n_snp} grid, data row {grid.d}, SNP "
+             f"block {grid.s}; this one holds rows [{start}, {end})).")
+    if not is_master():
+        log.setLevel(logging.WARNING)
+    y_num = _labels(args, N, K)
+    rows, device = (start, end), grid.device
+    local = torch.from_numpy(packed).to(device)
+
+    log.info("")
+    log.info("    Running SVD...")
+    log.info("")
+    t_svd = time.time()
+    V = rsvd(local, N, M, int(args.n_components), int(args.seed),
+             rows=rows, grid=grid)
+    log.info(f"    Total time SVD: {time.time() - t_svd:.4f}s")
+    log.info("")
+    if y_num is not None:
+        log.info("")
+        log.info("    Running Supervised Mode...")
+        log.info("")
+        P_init = init_p_supervised_packed(local, y_num, K, M, rows=rows,
+                                          grid=grid)
+    else:
+        log.info("")
+        log.info("    Running Gaussian Mixture in PCA subspace...")
+        log.info("")
+        P_init = init_p_unsupervised(local, V, N, M, ks, int(args.seed),
+                                     rows=rows, grid=grid)
+    del local
+
+    Qs, Ps, params = trainer.launch_training(P_init, packed, V, M, N,
+                                             pops=y_num, host_rows=rows)
+    # Each rank's part of the log-likelihood: its rows, its SNP block.
+    w_loc = packed.shape[1] // grid.n_snp
+    c0 = grid.s * 4 * w_loc
+    m_cols = max(0, min(M - c0, 4 * w_loc))
+    block = np.ascontiguousarray(
+        packed[:, grid.s * w_loc:(grid.s + 1) * w_loc])
+    parts = torch.tensor([
+        loglikelihood_packed(block, m_cols,
+                             P[c0:c0 + m_cols].astype(np.float64),
+                             Q[start:end].astype(np.float64), device=device)
+        if m_cols and end > start else 0.0
+        for Q, P in zip(Qs, Ps)], dtype=torch.float64,
+        device=grid.comm_device)
+    lls = grid.psum_(parts, (DATA_AXIS, SNP_AXIS), "loglikelihood").tolist()
+    _log_lls(lls, ks, K)
+    if is_master():
+        _save(args, params, Qs, Ps, ks, M, V.shape[0])
+        log.info("")
+        log.info(f"    Total elapsed time: {time.time() - t0:.2f} seconds.")
+        log.info("")
+
+
+def main_train(args, t0: float, hosts=None) -> int:
     setup_logging()
     check_ported(args)
-    if args.k is not None:
-        K, min_k, max_k = int(args.k), None, None
-        ks = [K]
-    else:
-        K, min_k, max_k = None, int(args.min_k), int(args.max_k)
-        ks = list(range(min_k, max_k + 1))
-    device = select_device(int(args.num_gpus), getattr(args, "mesh", None),
-                           "training")
+    K, _, _, ks = _ks(args)
+    shape = _resolve_mesh_shape(args, hosts)
+    if (shape is None and hosts) or (shape and shape[0] * shape[1] > 1):
+        return _train_grid(args, t0, hosts)
+    device = select_device(int(args.num_gpus), "training")
     stream = STREAM_MAP[getattr(args, "stream", "auto")]
     fmt = input_format(args.data_path)
     if fmt is not None:
         log.info(f"    Input format is {fmt}.")
     packed, N, M = read_packed(args.data_path)
     log.info(f"    Data contains {N} samples and {M} SNPs.")
-    y_num = None
-    if args.pops_path:
-        pops = read_pops(args.pops_path)
-        if K is None:
-            raise ValueError("Supervised mode requires --k (a single K).")
-        if len(pops) != N:
-            raise ValueError(f"Population file has {len(pops)} labels but "
-                             f"the data has {N} samples.")
-        y_num, _ = encode_populations(pops, K)
+    y_num = _labels(args, N, K)
     # The RSVD and the P init share one upload, or stream (auto: by the
     # RSVD's estimate, the larger of the two).
     setup_stream = stream if stream is not None else should_stream_host(
@@ -125,35 +282,19 @@ def main_train(args, t0: float) -> int:
     checkpoint_every = int(args.checkpoint_every or 0)
     if checkpoint_every or args.resume:
         Path(args.save_dir).mkdir(parents=True, exist_ok=True)
-    cfg = TrainConfig(
-        epochs=int(args.epochs), batch_size=int(args.batch_size),
-        learning_rate=float(args.learning_rate), seed=int(args.seed),
-        hidden_size=int(args.hidden_size),
-        n_components=int(args.n_components), ks=ks,
-        supervised_loss_weight=float(args.supervised_loss_weight),
-        progress=not args.no_progress,
-        sample_block=int(args.sample_block or 1), device=str(device),
-        stream=stream, checkpoint_every=checkpoint_every,
+    cfg = _train_config(
+        args, ks, stream, str(device), progress=not args.no_progress,
+        checkpoint_every=checkpoint_every,
         checkpoint_path=str(Path(args.save_dir) / f"{args.name}_ckpt.npz"),
         resume=bool(args.resume))
     trainer = NeuralAdmixtureTrainer(cfg)
     Qs, Ps, params = trainer.launch_training(P_init, packed, V, M, N,
                                              pops=y_num)
 
-    for i, k in enumerate(ks):
-        ll = loglikelihood_packed(packed, M, Ps[i].astype(np.float64),
-                                  Qs[i].astype(np.float64), device=device)
-        suffix = "" if K is not None else f" for K={k}"
-        # ':2f' (not ':.2f') is the reference's own format, kept for log
-        # scrapers.
-        log.info(f"    Log-likelihood{suffix}: {ll:2f}.")
-
-    Path(args.save_dir).mkdir(parents=True, exist_ok=True)
-    save_checkpoint(params, args.name, args.save_dir, strip_decoders=True)
-    save_pt_checkpoint(params, args.name, args.save_dir, num_snps=M)
-    save_config(args.name, args.save_dir, ks=ks, num_features=V.shape[0],
-                hidden_size=int(args.hidden_size), num_snps=M)
-    write_outputs(Qs, args.name, K, min_k, max_k, args.save_dir, Ps)
+    _log_lls([loglikelihood_packed(packed, M, P.astype(np.float64),
+                                   Q.astype(np.float64), device=device)
+              for Q, P in zip(Qs, Ps)], ks, K)
+    _save(args, params, Qs, Ps, ks, M, V.shape[0])
 
     log.info("")
     log.info(f"    Total elapsed time: {time.time() - t0:.2f} seconds.")

@@ -157,16 +157,24 @@ def test_infer_q_never_falls_back_to_cpu(monkeypatch):
         tentry.main(_infer_argv("unused", "m", "o"))
 
 
-@pytest.mark.parametrize("argv,match", [
+@pytest.mark.parametrize("argv,cards,exc,match", [
     (["train", "--k", "3", "--save_dir", "s", "--data_path", "d.bed",
-      "--name", "m", "--init_restarts", "2"], "item 13"),
-    (["infer", "--num_gpus", "2"], "item 12"),
-    (["infer", "--num_gpus", "0", "--mesh", "2x1"], "item 12"),
+      "--name", "m", "--init_restarts", "2"], None, NotImplementedError,
+     "item 13"),
+    # Several cards on a host without one: no CUDA device, no CPU run.
+    (["infer", "--num_gpus", "2"], None, RuntimeError,
+     "--num_gpus 2 asks for CUDA devices, but no CUDA device"),
+    # Three cards asked of one: the clamp, then the one card's check.
+    (["infer", "--num_gpus", "3"], 1, RuntimeError,
+     "--num_gpus 1 asks for a CUDA device, but no CUDA device"),
 ])
-def test_unported_paths_raise(argv, match):
+def test_unported_paths_raise(monkeypatch, argv, cards, exc, match):
+    if cards is not None:
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     if argv[0] == "infer":
         argv = _infer_argv("unused", "m", "o") + argv[1:]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         tentry.main(argv)
 
 
