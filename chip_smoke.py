@@ -70,6 +70,17 @@ non-zero exit and no result line:
      grid over NCCL across two cards where the machine has two; each
      rank's warm step split into compute (CUDA events) and each
      collective (host clock, bytes);
+  6e. full width, streaming and checkpoints on a grid (phase 6d's data and
+     init): a 2 x 2 grid of gloo ranks on the one card runs (a) resident
+     under NA_TPU_STRATIFIED=1 with a checkpoint every epoch, (b) streamed
+     by the auto policy (NA_TPU_HBM_CAPACITY_GB between a rank's streamed
+     and resident estimates) and (c) streamed, resumed from (a)'s epoch-1
+     file; (b) and (c) bit-equal to (a) on every rank, exact launches per
+     rank, no exchange collective; the file's size, format and mesh shape,
+     its save and load seconds; each rank's warm step (compute between
+     collectives, each collective), host gather rate, the pinned copy of a
+     step's slice and samples/s streamed beside resident; the staged grid
+     infer_q bit-equal to the block uploaded whole and to 6d's;
   7. CLI: ``train`` on the demo BED on the card and on the CPU (K = 7, a
      K range 2..4, and supervised with the argmax labels of the reference's
      K = 7 Q, which name 5 populations): the output files, the .npz through
@@ -81,7 +92,11 @@ non-zero exit and no result line:
      run's .Q and .P byte for byte (logging "Input format is PGEN." /
      "VCF.") and ``infer`` on them writes the BED's .Q; ``train --num_gpus
      2`` on one card logs the clamp and writes the ``--num_gpus 1`` run's
-     .Q byte for byte;
+     .Q byte for byte; a grid of two CPU ranks (``--num_gpus 0 --mesh
+     2x1``; a grid on cards needs a card a rank) with ``--stream 1``
+     writes the .Q and .P of the resident grid under NA_TPU_STRATIFIED=1
+     byte for byte, and one with ``--checkpoint_every 2`` sent SIGTERM
+     exits 143, then its ``--resume`` exits 0;
   A/B (only with ``--ab DIR``): the kernels of DIR, a copy of another
      commit's csrc/ with the same C interfaces (the parent's), built into
      DIR/build while the phases run, timed against the checkout's in the
@@ -93,8 +108,8 @@ non-zero exit and no result line:
      instance's ptxas registers of DIR's build against the checkout's;
   8. the run's seconds, the card's name and power limit, one JSON line with
      every kernel's numbers (those of the phases run; launches: phases 6,
-     6b, 6c's streamed runs and 6d's ranks, summed, with 6d's per rank in
-     ``grid_launches_per_rank``);
+     6b, 6c's streamed runs and 6d's and 6e's ranks, summed, with 6d's and
+     6e's per rank in ``grid_launches_per_rank``);
   9. the last line: {"ok": true, "device": {...}}.
 
 ``--phases env,build,kernels`` runs only those phases (a short check of a
@@ -146,7 +161,8 @@ from neural_admixture_tpu_torch.ops.pack import (  # noqa: E402
 from neural_admixture_tpu_torch.ops.rsvd import rsvd  # noqa: E402
 from neural_admixture_tpu_torch.ops.xv import xv, xv_plain  # noqa: E402
 from neural_admixture_tpu_torch.train.engine import (  # noqa: E402
-    NeuralAdmixtureTrainer, TrainConfig, block_geometry, epoch_plan)
+    CKPT_FORMAT, NeuralAdmixtureTrainer, TrainConfig, block_geometry,
+    epoch_plan)
 from neural_admixture_tpu_torch.train.init import (  # noqa: E402
     init_p_unsupervised, project_pca)
 from neural_admixture_tpu_torch.utils.seeding import generator  # noqa: E402
@@ -1885,8 +1901,7 @@ def phase_stream(dev, packed, trained):
     one, and the streamed RSVD and PCA projection bit-equal to the
     resident ones. Returns the streamed runs' launches."""
     t = phase("6c. full width: streamed training, checkpoint/resume")
-    from neural_admixture_tpu_torch.train.engine import (CKPT_FORMAT,
-                                                         INFER_BATCH)
+    from neural_admixture_tpu_torch.train.engine import INFER_BATCH
     W = packed.shape[1]
     m_pad, k, B = 4 * W, K_FULL, TRAIN_BATCH
     _, nb, _, n_rows = block_geometry(N_FULL, B, BLOCK)
@@ -2130,7 +2145,7 @@ def phase_grid(dev, card, packed, trained, infer_params, infer_Q):
     sharded infer_q (2 x 2) against phase 4's Q, the rows= RSVD (2 x 1)
     against phase 6's V; a one-rank NCCL grid against phase 6's run; two
     cards over NCCL where there are two. Returns {kernel: launches} of the
-    grid runs and the per-rank counts."""
+    grid runs, the per-rank counts and the 2 x 2 ranks' infer_q Qs."""
     t = phase("6d. grid: 2x1 and 2x2 gloo grids on one card, a 1-rank NCCL "
               "group")
     from neural_admixture_tpu_torch.parallel.distributed import spawn_grid
@@ -2240,6 +2255,243 @@ def phase_grid(dev, card, packed, trained, infer_params, infer_Q):
           f"component's largest of phase 6's (max|d| {d_v:.3e}); "
           + ", ".join(f"rank at {r['at']} {r['rsvd_s']:.3f} s"
                       for r in runs[(2, 1)]) + " (host clock)")
+    done(t)
+    return totals, per_rank, [r["infer_Q"] for r in runs[(2, 2)]]
+
+
+# Phase 6e's grid: a 2 x 2 grid of ranks on the one card, over gloo.
+STREAM_GRID = (2, 2)
+
+
+def stream_estimates(m_pad, k=K_FULL, shape=STREAM_GRID):
+    """A rank's resident and streamed device estimates (bytes) in phase 6e,
+    the trainer's terms (train/engine.py _capacity_policy): its block of
+    the data row's rows, its slice of a batch and its SNP block of the
+    plane state (V and the P rows, four f32 copies each)."""
+    n_data, n_snp = shape
+    w_loc = m_pad // 4 // n_snp
+    b_round, _, _, n_rows = block_geometry(N_FULL, TRAIN_BATCH, BLOCK, n_data)
+    plane = m_pad * (D_FULL + k) * 4 * 4 // n_snp
+    streamed = b_round // n_data * w_loc + plane
+    return n_rows // n_data * w_loc + streamed, streamed
+
+
+def grid_stream_rank(grid, packed_path, V, P_init, infer_params, ckpt,
+                     cap_gb):
+    """One rank of phase 6e (module level: ranks start with ``spawn``): (a)
+    resident under NA_TPU_STRATIFIED=1, 2 epochs, a checkpoint every epoch
+    (the epoch-1 file kept); (b) the auto policy under NA_TPU_HBM_CAPACITY_GB
+    = ``cap_gb``, 2 epochs; (c) the same, resumed from (a)'s epoch-1 file;
+    each with the grid's profile on and the launches counted; the staged
+    infer_q_mesh against the sharded pass over the block uploaded whole;
+    the copy of a step's slice from a pinned slot. Compares the runs in the
+    rank; returns what the phase checks and prints."""
+    from neural_admixture_tpu_torch.infer import infer_q_mesh
+    from neural_admixture_tpu_torch.parallel.grid import shard_params
+    from neural_admixture_tpu_torch.parallel.sharded_step import (
+        infer_q_sharded)
+    from neural_admixture_tpu_torch.utils.logger import log
+    log.setLevel("WARNING")  # the trainer's log lines, once per rank
+
+    class KeepingTrainer(NeuralAdmixtureTrainer):
+        """Keeps each checkpoint as ``path.{epoch}``."""
+        def _save_checkpoint(self, epoch, model, opt):
+            super()._save_checkpoint(epoch, model, opt)
+            if self.grid.rank == 0:
+                shutil.copy(self.cfg.checkpoint_path,
+                            f"{self.cfg.checkpoint_path}.{epoch}")
+
+    packed = np.load(packed_path, mmap_mode="r")
+    dev = grid.device
+    probe = NeuralAdmixtureTrainer(TrainConfig(
+        sample_block=BLOCK, batch_size=TRAIN_BATCH, device=str(dev)),
+        grid=grid)
+    start, end, _ = probe.sample_shard(packed.shape[1] * 4, N_FULL)
+    local = np.array(packed[start:end])  # a writable copy of the mmap
+
+    def run(env, **kw):
+        os.environ.update(env)
+        try:
+            trainer = KeepingTrainer(TrainConfig(
+                batch_size=TRAIN_BATCH, seed=SEED, hidden_size=H_FULL,
+                n_components=D_FULL, ks=[K_FULL], progress=False,
+                sample_block=BLOCK, device=str(dev),
+                **{"checkpoint_path": ckpt, **kw}), grid=grid)
+            reset_counts()
+            grid.start_profile()
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            result = trainer.launch_training(P_init, local, V, M_FULL,
+                                             N_FULL, host_rows=(start, end))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_s
+            grid.stop_profile()
+        finally:
+            for var in env:
+                del os.environ[var]
+        stager = trainer.stager
+        return result, {
+            "counts": read_counts(), "profiles": trainer.epoch_profiles,
+            "epoch_s": trainer.epoch_seconds,
+            "train_s": trainer.train_seconds, "wall": wall,
+            "streamed": trainer._streamed,
+            "phase_s": dict(trainer.phase_seconds),
+            "gather": (stager.gather_seconds, stager.bytes_gathered,
+                       stager.gather_threads) if stager else None}
+
+    cap = {"NA_TPU_HBM_CAPACITY_GB": repr(cap_gb)}
+    res_a, a = run({"NA_TPU_STRATIFIED": "1"}, epochs=TRAIN_EPOCHS,
+                   stream=False, checkpoint_every=1)
+    res_b, b = run(cap, epochs=TRAIN_EPOCHS)
+    res_c, c = run(cap, epochs=TRAIN_EPOCHS, checkpoint_path=f"{ckpt}.1",
+                   resume=True)
+    out = {"at": (grid.d, grid.s), "a": a, "b": b, "c": c,
+           "b_equal": same_run(res_b, res_a),
+           "c_equal": same_run(res_c, res_a)}
+    del res_a, res_b, res_c
+
+    # Grid infer: staged (infer_q_mesh) against the block uploaded whole.
+    rows = N_FULL // grid.n_data
+    reset_counts()
+    torch.cuda.synchronize()
+    t_s = time.perf_counter()
+    out["infer_Q"] = infer_q_mesh(infer_params, local[:rows], N_FULL,
+                                  [K_FULL], BATCH, grid)[0]
+    torch.cuda.synchronize()
+    out["infer_staged_s"] = time.perf_counter() - t_s
+    out["infer_counts"] = read_counts()
+    w_loc = packed.shape[1] // grid.n_snp
+    model = params_from_numpy(shard_params(infer_params, grid.n_snp, grid.s),
+                              [K_FULL], device=dev)
+    no_missing = not packed_has_missing(packed)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter()
+    block = torch.from_numpy(np.ascontiguousarray(
+        local[:rows, grid.s * w_loc:(grid.s + 1) * w_loc])).to(dev)
+    whole = infer_q_sharded(model, grid, block, rows, BATCH,
+                            no_missing)[f"k{K_FULL}"]
+    torch.cuda.synchronize()
+    out["infer_whole_s"] = time.perf_counter() - t_s
+    out["infer_equal"] = np.array_equal(out["infer_Q"], whole)
+
+    # The pinned copy of a step's slice (the ranks copy at once, as in a
+    # streamed step).
+    slice_rows = TRAIN_BATCH // grid.n_data
+    stager = HostStager(dev, slice_rows, w_loc, prefetch=1)
+    dev_buf = torch.empty((slice_rows, w_loc), dtype=torch.uint8, device=dev)
+    out["copy_ms"] = cuda_ms(lambda: dev_buf.copy_(stager._host[0],
+                                                   non_blocking=True), 10)
+    out["slice_bytes"] = slice_rows * w_loc
+    stager.close()
+    return out
+
+
+def phase_grid_stream(dev, card, packed, trained, infer_params, infer_Qs):
+    """Streaming and checkpoints on a 2 x 2 grid of ranks sharing the card
+    over gloo, at full width (phase 4's rows, phase 6's V and P init, K = 8,
+    batch 800, sample_block 16): (a) resident under NA_TPU_STRATIFIED=1
+    with a checkpoint every epoch, (b) streamed by the auto policy, (c)
+    streamed and resumed from (a)'s epoch-1 file; (b) and (c) bit-equal to
+    (a) on every rank, exact launches per rank, no exchange; the staged
+    grid infer against the uploaded block and phase 4's Q. Returns
+    {kernel: launches} of the runs and the per-rank counts."""
+    t = phase("6e. grid: streamed and checkpointed 2x2 gloo grid on one card")
+    from neural_admixture_tpu_torch.parallel.distributed import spawn_grid
+    from neural_admixture_tpu_torch.train.engine import INFER_BATCH
+    V, P_init = trained["V"], trained["P_init"]
+    m_pad = packed.shape[1] * 4
+    n_data, n_snp = STREAM_GRID
+    _, nb, _, _ = block_geometry(N_FULL, TRAIN_BATCH, BLOCK, n_data)
+    resident_b, streamed_b = stream_estimates(m_pad)
+    # Between the two estimates, over HBM_BUDGET_FRAC (0.9).
+    cap_gb = (resident_b + streamed_b) / 2 / 0.9 / 2**30
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        packed_path = os.path.join(d, "packed.npy")
+        np.save(packed_path, packed)
+        ckpt = os.path.join(d, "grid_ckpt.npz")
+        t_s = time.perf_counter()
+        results = spawn_grid(
+            grid_stream_rank, n_data, n_snp, devices=["cuda:0"] * 4,
+            backend="gloo", args=(packed_path, V, P_init, infer_params, ckpt,
+                                  cap_gb))
+        spawn_s = time.perf_counter() - t_s
+        size = os.path.getsize(f"{ckpt}.1")
+        with np.load(f"{ckpt}.1") as f:
+            meta = json.loads(bytes(f["meta"]).decode())
+            if bytes(f["format"]).decode() != CKPT_FORMAT or \
+                    int(f["epoch"]) != 1 or \
+                    meta["mesh_shape"] != list(STREAM_GRID) or \
+                    f["param/V"].shape != (m_pad, D_FULL):
+                raise AssertionError("grid checkpoint: format, epoch, mesh "
+                                     "or width")
+    print(f"   {n_data}x{n_snp} gloo: 4 ranks started, ran (a), (b), (c) and "
+          f"infer and ended in {spawn_s:.1f} s; a rank's estimates: resident "
+          f"{resident_b / 1e6:.1f} MB, streamed {streamed_b / 1e6:.1f} MB; "
+          f"NA_TPU_HBM_CAPACITY_GB={cap_gb:.4f} between them")
+    n_local = N_FULL // n_data
+    n_q = -(-n_local // INFER_BATCH)
+    want = expected_counts("default", nb, 1, n_q)
+    want_c = dict.fromkeys(COUNTERS, 0)  # epoch 1 (unlogged), the Q pass
+    want_c.update(xv=nb + n_q, dv=nb, dq_dp=nb)
+    totals, per_rank = {}, {}
+    for key, expect in (("a", want), ("b", want), ("c", want_c)):
+        per_rank[f"2x2 6e ({key})"] = [r[key]["counts"] for r in results]
+        for r in results:
+            if r[key]["counts"] != expect:
+                raise AssertionError(f"6e ({key}) rank at {r['at']}: "
+                                     f"launches {r[key]['counts']}, expected "
+                                     f"{expect}")
+            for name, c in r[key]["counts"].items():
+                totals[name] = totals.get(name, 0) + c
+            if any("exchange" in p.seconds for p in r[key]["profiles"]):
+                raise AssertionError(f"6e ({key}): rows were exchanged")
+    for r in results:
+        if r["a"]["streamed"] or not (r["b"]["streamed"]
+                                      and r["c"]["streamed"]):
+            raise AssertionError(f"6e rank at {r['at']}: (a) must be "
+                                 "resident, (b) and (c) streamed")
+        if not (r["b_equal"] and r["c_equal"]):
+            raise AssertionError(f"6e rank at {r['at']}: (b) = (a) "
+                                 f"{r['b_equal']}, (c) = (a) {r['c_equal']}")
+        if not (r["infer_equal"] and np.array_equal(r["infer_Q"], infer_Qs[
+                r["at"][0] * n_snp + r["at"][1]])):
+            raise AssertionError(f"6e rank at {r['at']}: staged grid infer "
+                                 "differs from the uploaded block or 6d")
+    print(f"   (b) streamed by the auto policy = (a) resident stratified bit "
+          f"for bit on every rank (Q, P, every parameter); (c) resumed "
+          f"streamed from (a)'s epoch-1 file = (a) bit for bit; launches "
+          f"exact a rank: (a), (b) "
+          + ", ".join(f"{n} {c}" for n, c in want.items() if c)
+          + "; (c) " + ", ".join(f"{n} {c}" for n, c in want_c.items() if c)
+          + "; no exchange collective in any run")
+    r0 = results[0]
+    print(f"   checkpoint {size / 1e6:.1f} MB at full width (mesh_shape "
+          f"{list(STREAM_GRID)}), save {r0['a']['phase_s']['save']:.3f} s "
+          f"(rank 0: the snp group's gathers and the write); load "
+          + ", ".join(f"{r['c']['phase_s']['load']:.3f}" for r in results)
+          + " s a rank (host clock)")
+    for key, label in (("a", "resident"), ("b", "streamed")):
+        print_grid_steps(f"6e ({key}) {label}", [
+            {"at": r["at"], "profiles": r[key]["profiles"],
+             "epoch_s": r[key]["epoch_s"]} for r in results], nb,
+            f"gloo through host memory, ranks sharing one card ({card})")
+    for r in results:
+        g_s, g_b, threads = r["b"]["gather"]
+        rate = g_b / g_s if g_s else float("nan")
+        e_a, e_b = r["a"]["epoch_s"][1], r["b"]["epoch_s"][1]
+        print(f"   6e rank at {r['at']}: epoch 1 streamed {N_FULL / e_b:,.0f} "
+              f"samples/s, resident {N_FULL / e_a:,.0f} (the epoch's steps, "
+              f"its checkpoint apart); (b) over 2 epochs "
+              f"{2 * N_FULL / r['b']['train_s']:,.0f}; host gather "
+              f"{g_b / 1e6:.1f} MB on {threads} threads at {rate / 1e9:.2f} "
+              f"GB/s ({1e3 * r['slice_bytes'] / rate:.3f} ms for a step's "
+              f"{r['slice_bytes'] / 1e6:.1f} MB slice); pinned copy of the "
+              f"slice {r['copy_ms']:.3f} ms ({r['slice_bytes'] / r['copy_ms'] / 1e6:.2f} "
+              f"GB/s, CUDA events, the 4 ranks at once); infer staged "
+              f"{r['infer_staged_s']:.3f} s, uploaded block "
+              f"{r['infer_whole_s']:.3f} s, Q bit-equal to each other and "
+              f"to 6d's; xv {r['infer_counts']['xv']}")
     done(t)
     return totals, per_rank
 
@@ -2353,6 +2605,7 @@ def phase_cli_train(dev):
                       f"{np.abs(Q_gpu - Q_cpu).max():.3e}; log-likelihood "
                       f"{ll_g:,.1f} vs {ll_c:,.1f}")
         cli_stream_and_preempt(d)
+        cli_grid_stream_and_preempt(d)
         cli_other_formats(d)
         cli_clamp(d)
     done(t)
@@ -2422,6 +2675,77 @@ def cli_stream_and_preempt(d):
     print(f"   train K=2 --checkpoint_every 5 --num_gpus 1, SIGTERM after "
           f"the first checkpoint: exit 143 at epoch {stopped} of {epochs} "
           f"({secs:.1f} s); --resume: rc 0, resumed from epoch {stopped} "
+          f"({time.perf_counter() - t_cli:.1f} s)")
+
+
+def cli_grid_stream_and_preempt(d):
+    """A grid of two CPU ranks on the demo (``--num_gpus 0 --mesh 2x1``: a
+    grid on the card needs a card a rank): ``--stream 1`` writes the .Q and
+    .P of the resident grid under NA_TPU_STRATIFIED=1 byte for byte; a
+    ``--checkpoint_every 2`` run sent SIGTERM after its first checkpoint
+    exits 143 (the ``train`` process forwards it to its ranks), and its
+    ``--resume`` exits 0."""
+    def cli(name, epochs, *flags):
+        return [sys.executable, "-u", "-m", "neural_admixture_tpu_torch.entry",
+                "train", "--k", "2", "--data_path", DEMO_BED, "--save_dir", d,
+                "--name", name, "--epochs", str(epochs), "--seed", "3",
+                "--batch_size", "64", "--hidden_size", "32", "--no_progress",
+                "--num_gpus", "0", "--mesh", "2x1", *flags]
+
+    t_cli = time.perf_counter()
+    r = subprocess.run(cli("g_stream", 4, "--stream", "1"), cwd=REPO,
+                       capture_output=True, text=True)
+    if r.returncode or "Host-streaming (out-of-core) training" not in r.stdout:
+        raise AssertionError(f"--mesh 2x1 --stream 1: exit {r.returncode}\n"
+                             f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+    subprocess.run(cli("g_strat", 4), cwd=REPO, check=True,
+                   capture_output=True, text=True,
+                   env={**os.environ, "NA_TPU_STRATIFIED": "1"})
+    for m in ("Q", "P"):
+        with open(os.path.join(d, f"g_stream.2.{m}"), "rb") as fa, \
+                open(os.path.join(d, f"g_strat.2.{m}"), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"--mesh 2x1 --stream 1 wrote another "
+                                     f".{m} than the stratified grid")
+    print(f"   train --num_gpus 0 --mesh 2x1 --stream 1 and the resident "
+          f"grid under NA_TPU_STRATIFIED=1: {time.perf_counter() - t_cli:.1f}"
+          f" s; .2.Q and .2.P byte for byte")
+
+    epochs = 60
+    pre = cli("g_pre", epochs, "--checkpoint_every", "2")
+    ckpt = os.path.join(d, "g_pre_ckpt.npz")
+    t_cli = time.perf_counter()
+    p = subprocess.Popen(pre, cwd=REPO, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 300
+        while not os.path.exists(ckpt) and time.time() < deadline:
+            if p.poll() is not None:
+                raise AssertionError("the grid run ended before its first "
+                                     "checkpoint:\n" + p.communicate()[0])
+            time.sleep(0.02)
+        p.send_signal(signal.SIGTERM)
+        out = p.communicate(timeout=300)[0]
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    if p.returncode != 143 or "SIGTERM received: resumable checkpoint " \
+            "saved at epoch" not in out:
+        raise AssertionError(f"grid SIGTERM: exit {p.returncode}\n"
+                             f"{out[-3000:]}")
+    with np.load(ckpt) as f:
+        stopped = int(f["epoch"])
+    secs = time.perf_counter() - t_cli
+    t_cli = time.perf_counter()
+    r = subprocess.run(pre + ["--resume"], cwd=REPO, capture_output=True,
+                       text=True)
+    if r.returncode != 0 or f"Resuming from epoch {stopped}." not in r.stdout:
+        raise AssertionError(f"grid --resume: exit {r.returncode}\n"
+                             f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+    print(f"   train --num_gpus 0 --mesh 2x1 --checkpoint_every 2, SIGTERM "
+          f"to the train process after the first checkpoint: exit 143 at "
+          f"epoch {stopped} of {epochs} ({secs:.1f} s); --resume: rc 0 "
           f"({time.perf_counter() - t_cli:.1f} s)")
 
 
@@ -2660,7 +2984,7 @@ def phase_ab(dev, parent_dir, parent_build, logs):
 
 
 PHASES = ("env", "build", "kernels", "infer", "readers", "cli_infer",
-          "train", "multihead", "stream", "grid", "cli_train")
+          "train", "multihead", "stream", "grid", "grid_stream", "cli_train")
 
 
 def parse_args(argv):
@@ -2670,7 +2994,7 @@ def parse_args(argv):
                     help="comma-separated phases to run, in their fixed "
                     "order (default: all): " + ", ".join(PHASES) + "; "
                     "readers and train need infer, multihead, stream and "
-                    "grid need train")
+                    "grid need train, grid_stream needs grid")
     ap.add_argument("--ab", default=None, metavar="DIR",
                     help="also time the kernels built from DIR (a copy of "
                     "another commit's csrc/, e.g. the parent's unpacked "
@@ -2683,7 +3007,7 @@ def parse_args(argv):
         ap.error(f"unknown phases {bad}; choose from {list(PHASES)}")
     for need, what in (("infer", "readers"), ("infer", "train"),
                        ("train", "multihead"), ("train", "stream"),
-                       ("train", "grid")):
+                       ("train", "grid"), ("grid", "grid_stream")):
         if what in args.phases and need not in args.phases:
             ap.error(f"phase {what} needs phase {need}")
     return args
@@ -2728,8 +3052,14 @@ def main(argv=None):
     if "stream" in run:
         add_launches(kernels, phase_stream(dev, packed, trained))
     if "grid" in run:
-        totals, per_rank = phase_grid(dev, card, packed, trained,
-                                      infer_params, infer_Q)
+        totals, per_rank, grid_Qs = phase_grid(dev, card, packed, trained,
+                                               infer_params, infer_Q)
+        if "grid_stream" in run:
+            more, more_per_rank = phase_grid_stream(
+                dev, card, packed, trained, infer_params, grid_Qs)
+            for name, c in more.items():
+                totals[name] = totals.get(name, 0) + c
+            per_rank.update(more_per_rank)
         add_launches(kernels, totals)
         for entry in kernels:
             entry["grid_launches_per_rank"] = {

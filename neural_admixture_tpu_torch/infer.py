@@ -8,8 +8,9 @@ copied on a side stream while the previous batch computes.
 
 Over a grid of ranks (``--num_gpus N > 1``, ``--mesh DxS``, or several
 hosts; the JAX package's infer_q_mesh, infer.py:76-125): each data row reads
-its own sample rows, each rank keeps its SNP block of them and V's rows of
-it, the encoder pass sums X @ V over the snp group
+its own sample rows, each rank keeps its SNP block of them in host memory
+(staged to the device by chunks) and V's rows of it, the encoder pass sums
+X @ V over the snp group
 (parallel/sharded_step.py infer_q_sharded), and rank 0 writes the rows of
 every data row.
 """
@@ -136,7 +137,8 @@ def infer_q_mesh(params, packed: np.ndarray, N: int, ks: List[int],
                  batch_size: int, grid) -> List[np.ndarray]:
     """Q (N, k) for each k in sorted ``ks`` on a grid of ranks, on every
     rank: ``packed`` holds this data row's rows of
-    :func:`rows_of_data_row`, at full width."""
+    :func:`rows_of_data_row`, at full width. The rank's SNP block stays in
+    host memory and goes to the device chunk by chunk through a stager."""
     from .parallel.sharded_step import infer_q_sharded
     from .train.engine import check_snp_axis
     W = packed.shape[1]
@@ -150,8 +152,8 @@ def infer_q_mesh(params, packed: np.ndarray, N: int, ks: List[int],
     grid.psum_(missing, (DATA_AXIS, SNP_AXIS), "has_missing")
     model = params_from_numpy(shard_params(params, grid.n_snp, grid.s), ks,
                               device=grid.device)
-    qs = infer_q_sharded(model, grid, torch.from_numpy(block).to(grid.device),
-                         end - start, batch_size, int(missing.item()) == 0)
+    qs = infer_q_sharded(model, grid, block, end - start, batch_size,
+                         int(missing.item()) == 0)
     return [qs[hk] for hk in head_keys(ks)]
 
 

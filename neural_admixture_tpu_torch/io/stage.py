@@ -54,6 +54,16 @@ from ..utils.hbm import should_stream_host
 
 # Host slot size at prefetch level 2.
 PIECE_BYTES = 32 << 20
+# Gather threads of one stager: the cores of the H100's host.
+MAX_GATHER_THREADS = 8
+
+
+def gather_thread_share(host_processes: int = 1) -> int:
+    """Gather threads of a stager in one of ``host_processes`` processes
+    that share this host's cores (a grid's ranks on one host): its share of
+    the cores, at most MAX_GATHER_THREADS and at least 1."""
+    return max(1, min(MAX_GATHER_THREADS,
+                      (os.cpu_count() or 1) // max(1, host_processes)))
 
 
 def prefetch_level(device) -> int:
@@ -102,19 +112,21 @@ class HostStager:
     and a ring of two host slots (see the module docstring).
 
     ``prefetch``: 0, 1 or 2 (default: NA_TPU_STREAM_PREFETCH). A gather
-    is cut over ``gather_threads`` threads, up to 8 (the cores of the H100's
-    host). ``gather_seconds`` and ``bytes_gathered`` add up the host
-    gather. :meth:`close` (or the stager's collection) unpins the host
-    slots."""
+    is cut over ``gather_threads`` threads (default: the host's cores, up
+    to 8; a grid's rank passes its share, :func:`gather_thread_share`).
+    ``gather_seconds`` and ``bytes_gathered`` add up the host gather.
+    :meth:`close` (or the stager's collection) unpins the host slots."""
 
     def __init__(self, device, rows: int, width: int,
-                 prefetch: Optional[int] = None):
+                 prefetch: Optional[int] = None,
+                 gather_threads: Optional[int] = None):
         self.device = torch.device(device)
         self.rows, self.width = int(rows), int(width)
         self.prefetch = (prefetch_level(self.device) if prefetch is None
                          else prefetch)
         self.cuda = self.device.type == "cuda"
-        self.gather_threads = min(8, os.cpu_count() or 1)
+        self.gather_threads = (gather_thread_share() if gather_threads is None
+                               else max(1, int(gather_threads)))
         self._pool = ThreadPoolExecutor(self.gather_threads)
         # Rows of a host slot: a whole job, or a piece of one (level 2).
         self.piece_rows = self.rows
@@ -274,11 +286,13 @@ class PackedRows:
     host array uploaded once) or, with ``stream``, streamed from the host
     array through one :class:`HostStager`, which every pass reuses.
     ``stream=None`` streams a host array when ``footprint`` bytes (default:
-    its packed rows) would not fit the device (utils/hbm.py)."""
+    its packed rows) would not fit the device (utils/hbm.py).
+    ``gather_threads``: the stager's (default: :class:`HostStager`'s)."""
 
     def __init__(self, packed, N: int, block_rows: int, device=None,
                  stream: Optional[bool] = False,
-                 footprint: Optional[int] = None):
+                 footprint: Optional[int] = None,
+                 gather_threads: Optional[int] = None):
         self.N, self.block_rows = int(N), max(1, int(block_rows))
         self.host = self.resident = None
         if isinstance(packed, torch.Tensor):
@@ -293,7 +307,8 @@ class PackedRows:
                 self.host = np.ascontiguousarray(packed[:N])
                 self.stager = HostStager(self.device,
                                          min(self.block_rows, max(1, N)),
-                                         self.host.shape[1])
+                                         self.host.shape[1],
+                                         gather_threads=gather_threads)
             else:
                 self.resident = torch.from_numpy(
                     np.ascontiguousarray(packed[:N])).to(self.device)

@@ -80,7 +80,8 @@ def rsvd(packed, N: int, M: int, k: int = 8, seed: int = 42,
     n_local = end - start
     block_rows = 1 << (block_rows_for(m_pad, block_bytes).bit_length() - 1)
     src = PackedRows(packed, n_local, block_rows, device, stream,
-                     resident_bytes(n_local, W, k, oversampling))
+                     resident_bytes(n_local, W, k, oversampling),
+                     grid.gather_threads if grid is not None else None)
     dev = src.device
     k_prime = max(k + oversampling, 20)
     rng = np.random.default_rng(seed)

@@ -19,12 +19,15 @@ run over its processes; the S ranks of a data row compute the same values.
 Copies of the JAX package's numpy helpers, kept here: the port imports
 nothing of that package.
 """
+import contextlib
 import os
 import pickle
+import signal
 import socket
 import tempfile
+import threading
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -151,22 +154,28 @@ def gather_ragged_rows(local: np.ndarray, grid: Optional[Grid]
                            for p, n in zip(parts, counts)], axis=0)
 
 
-def to_host(model, grid: Optional[Grid]):
-    """A models.qp model's parameters as a full numpy dict (the JAX
-    package's layout), on every rank: the V and P slices of the snp group
-    gathered in order, the replicated parameters as this rank holds them."""
-    from ..models.qp import params_to_numpy
-    params = params_to_numpy(model)
+def gather_snp(tree: Dict, grid: Optional[Grid], label: str) -> Dict:
+    """A numpy dict in the parameters' layout (the parameters, or one of
+    Adam's moments of each) whole, on every rank of the snp group: the V
+    and P slices gathered in order, the replicated leaves as this rank
+    holds them. The inverse of parallel/grid.py shard_params."""
     if grid is None or grid.n_snp == 1:
-        return params
+        return tree
 
     def gather(a, spec):
         if SNP_AXIS not in spec:
             return a
-        parts = grid.all_gather(_as_comm(a, grid), SNP_AXIS, "to_host")
+        parts = grid.all_gather(_as_comm(a, grid), SNP_AXIS, label)
         return np.concatenate([p.cpu().numpy() for p in parts],
                               axis=spec.index(SNP_AXIS))
-    return map_leaves(gather, params, param_specs(params))
+    return map_leaves(gather, tree, param_specs(tree))
+
+
+def to_host(model, grid: Optional[Grid]):
+    """A models.qp model's parameters as a full numpy dict (the JAX
+    package's layout), on every rank (:func:`gather_snp`)."""
+    from ..models.qp import params_to_numpy
+    return gather_snp(params_to_numpy(model), grid, "to_host")
 
 
 def free_port() -> int:
@@ -188,11 +197,21 @@ class GridSpec:
     threads: int
 
 
+# Exit code of a run preempted by SIGTERM after its checkpoint was saved.
+PREEMPTED_EXIT = 143
+
+
+@dataclass(frozen=True)
+class Preempted:
+    """What a rank returns when its run saved a checkpoint on SIGTERM and
+    exited with PREEMPTED_EXIT (the trainer's SystemExit)."""
+
+
 def _rank_main(local_rank: int, spec: GridSpec, out_dir: str) -> None:
     """One rank: join the world, build the grid (and, on a card, the kernels:
     local rank 0 builds, the others wait at a barrier), run the call of
-    ``out_dir/call.pkl``, ``fn(grid, *args)``, keep its return value, and
-    tear the group down whatever happens."""
+    ``out_dir/call.pkl``, ``fn(grid, *args)``, keep its return value (or
+    :class:`Preempted`), and tear the group down whatever happens."""
     setup_logging()
     # Written by spawn_grid, in this program.
     with open(os.path.join(out_dir, "call.pkl"), "rb") as f:
@@ -207,7 +226,8 @@ def _rank_main(local_rank: int, spec: GridSpec, out_dir: str) -> None:
     dist.init_process_group(spec.backend, init_method=spec.init_method,
                             world_size=world, rank=rank)
     try:
-        grid = Grid(spec.n_data, spec.n_snp, device)
+        grid = Grid(spec.n_data, spec.n_snp, device,
+                    host_ranks=len(spec.devices))
         if device.type == "cuda":
             if local_rank == 0:
                 from .. import _build
@@ -216,7 +236,12 @@ def _rank_main(local_rank: int, spec: GridSpec, out_dir: str) -> None:
                 dist.barrier(device_ids=[device.index])
             else:
                 dist.barrier()
-        result = fn(grid, *args)
+        try:
+            result = fn(grid, *args)
+        except SystemExit as exc:
+            if exc.code != PREEMPTED_EXIT:
+                raise
+            result = Preempted()
         with open(os.path.join(out_dir, f"rank{local_rank}.pkl"), "wb") as f:
             pickle.dump(result, f, protocol=pickle.HIGHEST_PROTOCOL)
     finally:
@@ -240,7 +265,12 @@ def spawn_grid(fn: Callable, n_data: int, n_snp: int,
     (:func:`maybe_initialize_distributed`); the rendezvous is then the
     coordinator's address, else a free local port or ``init_method``.
 
-    A rank that fails ends the others and raises here."""
+    A rank that fails ends the others and raises here. While the ranks
+    run, SIGTERM to this process reaches every one of them (a scheduler may
+    signal only the parent); when the ranks were preempted (their trainers
+    agreed on the signal, saved a checkpoint and exited PREEMPTED_EXIT),
+    this raises SystemExit(PREEMPTED_EXIT), and so it does when a forwarded
+    SIGTERM ended a rank before its trainer could save."""
     n_hosts = hosts.count if hosts else 1
     world = n_data * n_snp
     if world % n_hosts:
@@ -269,11 +299,46 @@ def spawn_grid(fn: Callable, n_data: int, n_snp: int,
         # in turn for larger arguments.
         with open(os.path.join(out_dir, "call.pkl"), "wb") as f:
             pickle.dump((fn, args), f, protocol=pickle.HIGHEST_PROTOCOL)
-        mp.start_processes(_rank_main, args=(spec, out_dir), nprocs=local,
-                           join=True, start_method="spawn")
+        ctx = mp.start_processes(_rank_main, args=(spec, out_dir),
+                                 nprocs=local, join=False,
+                                 start_method="spawn")
+        with _forward_sigterm(ctx.processes) as signalled:
+            try:
+                while not ctx.join():
+                    pass
+            except mp.ProcessExitedException as exc:
+                if signalled and exc.exit_code == -signal.SIGTERM:
+                    raise SystemExit(PREEMPTED_EXIT) from exc
+                raise
         results = []
         for i in range(local):
             # Written by the ranks just started, from this program.
             with open(os.path.join(out_dir, f"rank{i}.pkl"), "rb") as f:
                 results.append(pickle.load(f))
+    if any(isinstance(r, Preempted) for r in results):
+        raise SystemExit(PREEMPTED_EXIT)
     return results
+
+
+@contextlib.contextmanager
+def _forward_sigterm(processes):
+    """While inside, SIGTERM to this process is sent on to ``processes``
+    (spawned ranks do not inherit this process's handlers); yields a list
+    that is non-empty once a SIGTERM came. Signals reach only the main
+    thread, so elsewhere this forwards nothing."""
+    signalled: List[int] = []
+    if threading.current_thread() is not threading.main_thread():
+        yield signalled
+        return
+
+    def forward(signum, frame):
+        signalled.append(signum)
+        for p in processes:
+            if p.is_alive():
+                os.kill(p.pid, signal.SIGTERM)
+    prev = signal.signal(signal.SIGTERM, forward)
+    try:
+        yield signalled
+    finally:
+        signal.signal(signal.SIGTERM, prev if prev is not None
+                      else signal.SIG_DFL)

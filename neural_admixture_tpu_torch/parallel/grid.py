@@ -39,6 +39,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..io.stage import gather_thread_share
+
 DATA_AXIS = "data"
 SNP_AXIS = "snp"
 
@@ -127,10 +129,13 @@ class Grid:
     """This rank's place on a D x S grid, its three process groups and the
     collectives over them. Built by every rank of an initialised
     torch.distributed world of D * S ranks (every group is created by every
-    rank, in one order, as torch.distributed requires)."""
+    rank, in one order, as torch.distributed requires). ``host_ranks``:
+    the ranks on this rank's host, which share its cores; a host stager of
+    this rank gathers on ``gather_threads`` threads, its share."""
 
-    def __init__(self, n_data: int, n_snp: int, device):
+    def __init__(self, n_data: int, n_snp: int, device, host_ranks: int = 1):
         self.n_data, self.n_snp = int(n_data), int(n_snp)
+        self.gather_threads = gather_thread_share(host_ranks)
         self.rank = dist.get_rank()
         world = dist.get_world_size()
         if world != self.n_data * self.n_snp:

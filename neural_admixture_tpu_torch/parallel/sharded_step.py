@@ -21,11 +21,12 @@ Per rank (d, s) of a D x S grid (parallel/grid.py):
              encoder's over the world, the loss (logged steps) over the
              world; Adam and the P clamp run on each rank's slice.
 """
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..io.stage import HostStager
 from ..ops.fused_step import fused_infer_q, fused_training_loss
 from ..ops.loss import softmax_cross_entropy_sum
 from ..train.chunked import chunked_forward
@@ -104,21 +105,33 @@ def make_sharded_loss_and_grad(grid: Grid, supervised: bool,
     return loss_and_grad
 
 
-def infer_q_sharded(encoder, grid: Grid, packed: torch.Tensor, n_rows: int,
-                    batch: int = 1024, no_missing: bool = False
+def infer_q_sharded(encoder, grid: Grid, packed, n_rows: int,
+                    batch: int = 1024, no_missing: bool = False,
+                    stager: Optional[HostStager] = None
                     ) -> Dict[str, np.ndarray]:
     """The encoder pass over this data row's first ``n_rows`` rows of
-    ``packed`` (its SNP block, a tensor on the rank's device) in chunks of
-    at most ``batch`` rows: xv on the block, the sum over the snp group,
-    the encoder. Returns {head: Q} of every data row's rows concatenated in
-    data-row order, on every rank."""
+    ``packed`` (its SNP block: a tensor on the rank's device, or a host
+    array whose chunks go through ``stager``, by default one of the rank's
+    thread share made here) in chunks of at most ``batch`` rows: xv on the
+    block, the sum over the snp group, the encoder. A chunk holds the same
+    bytes either way. Returns {head: Q} of every data row's rows
+    concatenated in data-row order, on every rank."""
     qs: Dict[str, np.ndarray] = {}
     if n_rows:
-        with torch.no_grad():
-            qs = chunked_forward(
-                lambda b: fused_infer_q(encoder, b, no_missing,
-                                        snp_group=grid),
-                packed, n_rows, min(n_rows, batch), packed.device)
+        chunk = min(n_rows, batch)
+        own = None
+        if isinstance(packed, np.ndarray) and stager is None:
+            stager = own = HostStager(grid.device, chunk, packed.shape[1],
+                                      gather_threads=grid.gather_threads)
+        try:
+            with torch.no_grad():
+                qs = chunked_forward(
+                    lambda b: fused_infer_q(encoder, b, no_missing,
+                                            snp_group=grid),
+                    packed, n_rows, chunk, grid.device, stager=stager)
+        finally:
+            if own is not None:
+                own.close()
     else:
         qs = {f"k{k}": np.zeros((0, k), np.float32) for k in encoder.ks}
     return {hk: gather_ragged_rows(q, grid) for hk, q in qs.items()}

@@ -73,9 +73,23 @@ the JAX engine's engine.py:1276), then a full-data Q pass.
     none when every row is local, as under ``NA_TPU_STRATIFIED=1``,
     :func:`stratified_plan`). The step is parallel/sharded_step.py's; full
     batches are gathered, never indexed (as the JAX engine indexes only
-    without a mesh). The Q pass runs per data row and its rows are gathered
-    to every rank, and so are the parameters. Host streaming and
-    checkpoints on a grid are ROADMAP.md Queue 1 item 12b.
+    without a mesh). A padding row of per-row sampling is read as a zero
+    row by the data row whose slice holds it. The Q pass runs per data row
+    and its rows are gathered to every rank, and so are the parameters.
+  * Host streaming on a grid (the JAX package's multi-host
+    make_stream_epoch_fn, engine.py:610-855): the rank's block stays in
+    host memory; with more than one data row the plan is the stratified
+    one (every row of a data row's slice is its own, as the JAX package
+    forces for a streamed multi-process run, engine.py:1131-1140), so each
+    step's slice goes through the rank's stager and no row is exchanged.
+    A streamed grid equals the resident grid under NA_TPU_STRATIFIED=1 bit
+    for bit; so does its Q pass, staged chunk by chunk.
+  * Checkpoints on a grid (engine.py:1447-1536): the file is the one-device
+    layout at full width, V, the Ps and their moments gathered over the snp
+    group and written by rank 0; the meta holds the grid's shape, which a
+    resume may change (the file is cut into the new grid's blocks). The
+    ranks agree on the file and on SIGTERM, so they save and stop at one
+    epoch.
   * ``NA_TPU_EMULATE_PROC_SHARDS="P,D"`` (the JAX package's, engine.py:
     985-1016): one rank lays its rows out as a P-process run over a D-wide
     data axis does, with that run's geometry and, under block sampling, its
@@ -95,11 +109,14 @@ import numpy as np
 import torch
 
 from ..io.stage import HostStager
+from ..io.writers import _flatten, _unflatten
 from ..models import qp
 from ..ops.fused_step import fused_training_loss
 from ..ops.loss import softmax_cross_entropy_sum
 from ..ops.pack import batch_rows, packed_has_missing
-from ..parallel.distributed import host_sample_shard, rows_per_process, to_host
+from ..parallel.distributed import (PREEMPTED_EXIT, gather_snp,
+                                    host_sample_shard, rows_per_process,
+                                    to_host)
 from ..parallel.grid import DATA_AXIS, SNP_AXIS, Grid, shard_params
 from ..parallel.sharded_step import infer_q_sharded, make_sharded_loss_and_grad
 from ..utils.hbm import HBM_BUDGET_FRAC, hbm_capacity_bytes
@@ -112,7 +129,9 @@ INFER_BATCH = 1024
 # The "format" entry of a checkpoint: the layout below (params_to_numpy's
 # names under "param/", Adam's state under "adam/").
 CKPT_FORMAT = "neural_admixture_tpu_torch/train_state/1"
-ITEM_12B = "12b (streaming and checkpoints on a grid)"
+# The parameter-shaped groups of a checkpoint: the parameters, then Adam's
+# two moments of each.
+CKPT_GROUPS = ("param", "exp_avg", "exp_avg_sq")
 # Each rank's SNP block must be whole 32-bit words of 16 SNPs: every kernel
 # reads its packed rows as u32 words (m_pad % (16 * S) == 0).
 SNP_QUANTUM = 16
@@ -151,6 +170,12 @@ class TrainConfig:
 def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1 "
                                f"item {item}.")
+
+
+def _ckpt_key(group: str, name: str) -> str:
+    """The file's key of parameter ``name``'s entry in ``group`` (one of
+    CKPT_GROUPS, or Adam's "step")."""
+    return f"param/{name}" if group == "param" else f"adam/{name}/{group}"
 
 
 def smallest_head(qs) -> str:
@@ -390,9 +415,6 @@ class NeuralAdmixtureTrainer:
         emul = emulated_shards()
         if grid is not None:
             self._pick_mesh(m_pad, grid.n_data * grid.n_snp, device)
-            if cfg.checkpoint_every or cfg.resume:
-                raise not_ported("Checkpoints on a grid of ranks "
-                                 "(--checkpoint_every, --resume)", ITEM_12B)
             d_sz = grid.n_data
             ep = d_sz if blk > 1 and d_sz > 1 else 0
         elif emul is not None:
@@ -400,15 +422,11 @@ class NeuralAdmixtureTrainer:
         else:
             ep, d_sz = 0, 1
         b_round, nb, b_rem, n_rows = block_geometry(N, batch_size, blk, d_sz)
-        strat = 0
-        if os.environ.get("NA_TPU_STRATIFIED") == "1":
-            parts = (grid.n_data if grid is not None
-                     else emul[0] if emul is not None and blk > 1 else 0)
-            strat = parts if parts > 1 else 0
 
         # Layout: the one-time row pre-shuffle for block sampling, then zero
         # rows up to whole blocks of whole batches; resident on the device,
-        # or, streamed, only the map from resident rows to host rows.
+        # or, streamed, only the map from resident rows to host rows (on a
+        # grid: the rank's block in host memory).
         t_phase = time.perf_counter()
         self._row_order = None
         if blk > 1:
@@ -418,8 +436,9 @@ class NeuralAdmixtureTrainer:
                 else np.random.default_rng(cfg.seed).permutation(N))
         host, stream, self.stager = None, False, None
         if grid is not None:
-            rows_pp, resident, no_missing = self._grid_layout(
+            rows_pp, host, resident, no_missing = self._grid_layout(
                 packed, N, m_pad, b_round, host_rows, device)
+            stream = host is not None
             n_rows = grid.n_data * rows_pp
             m_loc = m_pad // grid.n_snp
             col_mask = (torch.arange(grid.s * m_loc, (grid.s + 1) * m_loc,
@@ -449,6 +468,7 @@ class NeuralAdmixtureTrainer:
             col_mask = (torch.arange(m_pad, device=device) < M).to(
                 torch.float32)
         pops_dev = self._prepare_pops(pops, N, device) if supervised else None
+        strat = self._stratified_parts(stream, blk, emul)
         t_phase = self._lap("layout", t_phase, device)
 
         if init_params is None:
@@ -502,8 +522,8 @@ class NeuralAdmixtureTrainer:
                 loss.backward()
                 return loss
         else:
-            steps = self._grid_batches(plans, N, rows_pp, blk, resident,
-                                       device)
+            steps = self._grid_batches(plans, start_epoch, N, rows_pp, blk,
+                                       host, resident, device)
             lag = make_sharded_loss_and_grad(grid, supervised,
                                              cfg.supervised_loss_weight)
 
@@ -513,23 +533,24 @@ class NeuralAdmixtureTrainer:
                            if supervised else None,
                            not (full and full_real), no_missing, logged,
                            merged)
-        self._run_epochs(model, opt, start_epoch, steps, step_fn, N,
-                         supervised, device)
-
-        t_phase = time.perf_counter()
-        with torch.no_grad():
-            if grid is None:
-                qs = chunked_forward(
-                    lambda b: model(b, no_missing),
-                    host if stream else resident, N, min(N, INFER_BATCH),
-                    device, order=self._row_order, stager=self.stager)
-            else:
-                qs = infer_q_sharded(
-                    model, grid, resident,
-                    min(rows_pp, max(0, N - grid.d * rows_pp)), INFER_BATCH,
-                    no_missing)
-        if self.stager is not None:
-            self.stager.close()
+        try:  # the stager's pinned slots go on every way out, 143 too
+            self._run_epochs(model, opt, start_epoch, steps, step_fn, N,
+                             supervised, device)
+            t_phase = time.perf_counter()
+            with torch.no_grad():
+                if grid is None:
+                    qs = chunked_forward(
+                        lambda b: model(b, no_missing),
+                        host if stream else resident, N, min(N, INFER_BATCH),
+                        device, order=self._row_order, stager=self.stager)
+                else:
+                    qs = infer_q_sharded(
+                        model, grid, host if stream else resident,
+                        min(rows_pp, max(0, N - grid.d * rows_pp)),
+                        INFER_BATCH, no_missing, stager=self.stager)
+        finally:
+            if self.stager is not None:
+                self.stager.close()
         Qs = [qs[f"k{k}"] for k in self.ks]
         if self._row_order is not None:
             Qs = [self._unshuffle_rows(q) for q in Qs]
@@ -546,10 +567,14 @@ class NeuralAdmixtureTrainer:
 
     def _grid_layout(self, packed: np.ndarray, N: int, m_pad: int,
                      b_round: int, host_rows, device):
-        """This rank's resident block: its data row's rows (through the
-        per-process pre-shuffle under block sampling), zero-padded to
-        rows_per_process, its SNP block of them on the device. Returns
-        (rows_pp, the block, no_missing over the whole grid)."""
+        """This rank's block: its data row's rows (through the per-process
+        pre-shuffle under block sampling), zero-padded to rows_per_process,
+        its SNP block of them. By the capacity policy (the same decision on
+        every rank: reckoned from rows_per_process) it stays in host memory,
+        streamed through the rank's stager, or goes to the device with one
+        zero row appended (the padding rows of a batch read it). Returns
+        (rows_pp, the host block or None, the device block or None,
+        no_missing over the whole grid)."""
         grid = self.grid
         start, end, rows_pp = self.sample_shard(m_pad, N)
         if host_rows is not None and tuple(host_rows) != (start, end):
@@ -561,24 +586,41 @@ class NeuralAdmixtureTrainer:
         if packed.shape[0] < n_local:
             raise ValueError(f"packed holds {packed.shape[0]} rows; data row "
                              f"{grid.d} owns {n_local}")
-        self._capacity_policy(
-            rows_pp * m_pad // 4 // grid.n_snp,
-            b_round // grid.n_data * m_pad // 4 // grid.n_snp,
-            self._plane_state_bytes(m_pad) // grid.n_snp, device)
         w_loc = m_pad // 4 // grid.n_snp
+        stream = self._capacity_policy(
+            rows_pp * w_loc, b_round // grid.n_data * w_loc,
+            self._plane_state_bytes(m_pad) // grid.n_snp, device)
         cols = slice(grid.s * w_loc, (grid.s + 1) * w_loc)
         local = np.asarray(packed)[:n_local, cols]
         if self._row_order is not None:
             local = local[self._row_order[start:end] - start]
-        block = np.zeros((rows_pp, w_loc), np.uint8)
+        block = np.zeros((rows_pp + (0 if stream else 1), w_loc), np.uint8)
         block[:n_local] = local
         # The kernels' no-missing variant only where no rank's block has a
         # code 3 (a batch holds rows of every data row).
         missing = torch.tensor([int(packed_has_missing(block))],
                                device=grid.comm_device)
         grid.psum_(missing, (DATA_AXIS, SNP_AXIS), "has_missing")
-        return rows_pp, torch.from_numpy(block).to(device), \
-            int(missing.item()) == 0
+        no_missing = int(missing.item()) == 0
+        if stream:
+            self.stager = HostStager(
+                device, max(b_round // grid.n_data, min(rows_pp, INFER_BATCH)),
+                w_loc, gather_threads=grid.gather_threads)
+            return rows_pp, block, None, no_missing
+        return rows_pp, None, torch.from_numpy(block).to(device), no_missing
+
+    def _stratified_parts(self, stream: bool, blk: int, emul) -> int:
+        """The partitions of the stratified plan (0: the global plan): the
+        data rows of a grid that streams, or, under NA_TPU_STRATIFIED=1, of
+        any grid or of an emulated layout under block sampling (the JAX
+        package's rule, engine.py:1124-1140, a data row for a process)."""
+        grid = self.grid
+        parts = (grid.n_data if grid is not None
+                 else emul[0] if emul is not None and blk > 1 else 0)
+        if parts > 1 and ((stream and grid is not None) or
+                          os.environ.get("NA_TPU_STRATIFIED") == "1"):
+            return parts
+        return 0
 
     def _batches(self, plans, start_epoch: int, N: int, n_rows: int,
                  blk: int, host: np.ndarray, resident, indexed: bool,
@@ -632,54 +674,109 @@ class NeuralAdmixtureTrainer:
             if staged is not None:
                 staged.close()
 
-    def _grid_batches(self, plans, N: int, rows_pp: int, blk: int,
-                      resident: torch.Tensor, device) -> Iterator[Tuple]:
-        """Every step of a grid rank, as :meth:`_batches` yields them: the
-        global resident ids of its data row's slice of the batch, and the
-        slice's packed rows of its SNP block, from its own resident block
-        and, for rows held by other data rows, over the data group (one
-        all_to_all; skipped on every rank when every slice is local). The
-        exchange's indices are arithmetic on the plan, the same on every
-        rank; an epoch's go to the device at once."""
+    def _grid_epoch(self, plan: Plan, N: int, rows_pp: int, blk: int,
+                    zero_row: int) -> List[Tuple]:
+        """An epoch's steps for this rank, as (rows, local, exchange): the
+        global resident ids of its data row's slice of the batch; when every
+        slice's rows are its own data row's (on every rank alike), the rows
+        of its block that the slice reads (exchange None); else, for the
+        all_to_all over the data group, local None and exchange = (the rows
+        its block sends, in data-row order, the slice's positions that
+        receive, the counts received and sent per data row). A padding row
+        (id >= N) is read as ``zero_row`` of the block of the data row whose
+        slice holds it."""
         grid = self.grid
         D, d = grid.n_data, grid.d
-        w_loc = resident.shape[1]
-        for epoch in range(self.cfg.epochs):
-            idx_full, idx_rem = plans(epoch)
-            steps, parts = [], []
-            for idx in list(idx_full) + [idx_rem]:
-                idx = np.asarray(idx, np.int64)
-                rows = (idx[:, None] * blk + np.arange(blk)).reshape(-1) \
-                    if blk > 1 else idx
-                safe = rows if blk > 1 else np.minimum(rows, N - 1)
-                # The data row that holds each position's row, per data
-                # row's slice of the batch.
-                owner = (safe // rows_pp).reshape(D, -1)
-                local = (safe % rows_pp).reshape(D, -1)
-                parts.append(rows.reshape(D, -1)[d])
-                if (owner == np.arange(D)[:, None]).all():
-                    parts.append(local[d])
-                    steps.append(None)
-                    continue
-                send = [local[q][owner[q] == d] for q in range(D)]
-                recv = [np.nonzero(owner[d] == p)[0] for p in range(D)]
-                parts += [np.concatenate(send), np.concatenate(recv)]
-                steps.append(([len(a) for a in recv], [len(a) for a in send]))
-            flat = torch.from_numpy(np.concatenate(parts)).to(device)
-            views = iter(flat.split([len(a) for a in parts]))
-            for i, counts in enumerate(steps):
-                rows = next(views)
-                if counts is None:
-                    xb = resident.index_select(0, next(views))
-                else:
-                    send_buf = resident.index_select(0, next(views))
-                    recv_pos = next(views)
-                    out = torch.empty(len(recv_pos), w_loc, dtype=torch.uint8,
-                                      device=device)
-                    grid.all_to_all_rows(out, send_buf, counts[0], counts[1],
-                                         "exchange")
-                    xb = torch.empty_like(out).index_copy_(0, recv_pos, out)
-                yield epoch, i < len(steps) - 1, rows, xb, None
+        out = []
+        for idx in list(plan[0]) + [plan[1]]:
+            idx = np.asarray(idx, np.int64)
+            rows = (idx[:, None] * blk + np.arange(blk)).reshape(-1) \
+                if blk > 1 else idx
+            pad = rows >= N
+            # The data row that holds each position's row, per data row's
+            # slice of the batch.
+            slot = np.repeat(np.arange(D), len(rows) // D)
+            owner = np.where(pad, slot, rows // rows_pp).reshape(D, -1)
+            local = np.where(pad, zero_row, rows % rows_pp).reshape(D, -1)
+            mine = rows.reshape(D, -1)[d]
+            if (owner == np.arange(D)[:, None]).all():
+                out.append((mine, local[d], None))
+                continue
+            send = [local[q][owner[q] == d] for q in range(D)]
+            recv = [np.nonzero(owner[d] == p)[0] for p in range(D)]
+            out.append((mine, None, (np.concatenate(send),
+                                     np.concatenate(recv),
+                                     [len(a) for a in recv],
+                                     [len(a) for a in send])))
+        return out
+
+    def _grid_batches(self, plans, start_epoch: int, N: int, rows_pp: int,
+                      blk: int, host: Optional[np.ndarray],
+                      resident: Optional[torch.Tensor], device
+                      ) -> Iterator[Tuple]:
+        """Every step of a grid rank from ``start_epoch`` on, as
+        :meth:`_batches` yields them: the global resident ids of its data
+        row's slice of the batch, and the slice's packed rows of its SNP
+        block. Resident: from its device block and, for rows held by other
+        data rows, over the data group (:meth:`_grid_epoch`; an epoch's
+        indices go to the device at once). Streamed (``host``): every row
+        must be its own data row's (the stratified plan), and the slice is
+        gathered from the host block through the stager, pipelined across
+        epochs."""
+        cfg = self.cfg
+        memo: Dict[int, List[Tuple]] = {}
+
+        def steps(epoch):
+            if epoch not in memo:
+                memo.clear()
+                memo[epoch] = self._grid_epoch(
+                    plans(epoch), N, rows_pp, blk,
+                    -1 if host is not None else rows_pp)
+            return memo[epoch]
+
+        def host_jobs():
+            for epoch in range(start_epoch, cfg.epochs):
+                for _, local, exchange in steps(epoch):
+                    if exchange is not None:
+                        raise RuntimeError(
+                            "a streamed grid step needs rows of another data "
+                            "row; streaming needs the stratified plan")
+                    yield local
+
+        staged = (self.stager.batches(host, host_jobs())
+                  if host is not None else None)
+        try:
+            for epoch in range(start_epoch, cfg.epochs):
+                epoch_steps = steps(epoch)
+                parts = []
+                for rows, local, exchange in epoch_steps:
+                    parts.append(rows)
+                    if staged is None:
+                        parts += [local] if exchange is None \
+                            else list(exchange[:2])
+                flat = torch.from_numpy(np.concatenate(parts)).to(device)
+                views = iter(flat.split([len(a) for a in parts]))
+                last = len(epoch_steps) - 1
+                for i, (_, _, exchange) in enumerate(epoch_steps):
+                    rows = next(views)
+                    if staged is not None:
+                        xb = next(staged)
+                    elif exchange is None:
+                        xb = resident.index_select(0, next(views))
+                    else:
+                        send_buf = resident.index_select(0, next(views))
+                        recv_pos = next(views)
+                        out = torch.empty(len(recv_pos), resident.shape[1],
+                                          dtype=torch.uint8, device=device)
+                        self.grid.all_to_all_rows(
+                            out, send_buf, exchange[2], exchange[3],
+                            "exchange")
+                        xb = torch.empty_like(out).index_copy_(0, recv_pos,
+                                                               out)
+                    yield epoch, i < last, rows, xb, None
+        finally:
+            if staged is not None:
+                staged.close()
 
     def _run_epochs(self, model, opt, start_epoch: int, steps, step_fn,
                     N: int, supervised: bool, device) -> None:
@@ -744,16 +841,33 @@ class NeuralAdmixtureTrainer:
                         == 0
                     if saved:
                         self._save_checkpoint(epoch + 1, model, opt)
-                    if self._preempted and epoch + 1 < cfg.epochs:
+                    preempted = self._preempted
+                    if ckpt_on and grid is not None:
+                        # Every rank stops at the epoch where any rank was
+                        # signalled (the signal may reach hosts apart).
+                        flag = torch.tensor([int(preempted)],
+                                            device=grid.comm_device)
+                        preempted = bool(grid.psum_(
+                            flag, (DATA_AXIS, SNP_AXIS), "preempt").item())
+                    if preempted and epoch + 1 < cfg.epochs:
                         if not saved:
                             self._save_checkpoint(epoch + 1, model, opt)
+                        if grid is not None:
+                            # No rank leaves before the file is written.
+                            grid.psum_(torch.zeros(
+                                1, device=grid.comm_device),
+                                (DATA_AXIS, SNP_AXIS), "saved")
                         if cfg.progress:
                             print(file=sys.stderr)
                         log.info(f"    SIGTERM received: resumable "
                                  f"checkpoint saved at epoch {epoch + 1} "
                                  f"({cfg.checkpoint_path}); exiting. Restart "
                                  "with --resume to continue.")
-                        raise SystemExit(143)
+                        raise SystemExit(PREEMPTED_EXIT)
+                    if grid is not None and grid.profile is not None:
+                        # An epoch's profile holds its steps: the save's
+                        # gathers and write are measured apart.
+                        grid.start_profile()
                     t_epoch = time.perf_counter()
         finally:
             if installed:
@@ -776,8 +890,7 @@ class NeuralAdmixtureTrainer:
         resident packed rows, one packed batch and the SNP-plane state
         (:meth:`_plane_state_bytes`; on a grid, each rank's block of each)
         against HBM_BUDGET_FRAC of the capacity; streamed, the same without
-        the resident rows. A grid does not stream yet (ROADMAP.md item
-        12b): where it would, this raises."""
+        the resident rows."""
         cfg = self.cfg
         cap_gb = hbm_capacity_bytes(device) / 2**30
         per_chip = data_bytes + batch_bytes + plane_bytes
@@ -787,19 +900,14 @@ class NeuralAdmixtureTrainer:
         stream = cfg.stream
         if stream is None:
             stream = not resident_fits and per_chip_stream <= budget
-        if stream and self.grid is not None:
-            raise not_ported(
-                "Host streaming on a grid of ranks (--stream 1, or an auto "
-                "policy that would stream: estimated per-rank need "
-                f"~{per_chip / 2**30:.1f} GiB against ~{cap_gb:.0f} GiB)",
-                ITEM_12B)
         self._streamed = bool(stream)
         if stream:
             log.info(
                 f"    Host-streaming (out-of-core) training: packed "
-                f"genotypes ({data_bytes / 2**30:.1f} GiB) stay in host "
-                f"memory; estimated per-chip HBM need drops to "
-                f"~{per_chip_stream / 2**30:.1f} GiB.")
+                f"genotypes ({data_bytes / 2**30:.1f} GiB"
+                + (" per rank" if self.grid is not None else "")
+                + ") stay in host memory; estimated per-chip HBM need "
+                f"drops to ~{per_chip_stream / 2**30:.1f} GiB.")
         elif not resident_fits:
             log.warning(
                 f"    Estimated per-chip HBM need ~{per_chip / 2**30:.1f} "
@@ -872,10 +980,14 @@ class NeuralAdmixtureTrainer:
 
     def _ckpt_meta(self) -> Dict:
         """The hyperparameters that must match between save and resume (the
-        JAX package's _ckpt_meta without its mesh shape): a restored Adam
-        state stepped through another objective diverges silently."""
+        JAX package's _ckpt_meta): a restored Adam state stepped through
+        another objective diverges silently. ``mesh_shape`` (the grid's
+        (n_data, n_snp), [1, 1] on one device) is recorded, not compared:
+        a resume may change it."""
         cfg = self.cfg
         return {
+            "mesh_shape": list(self.grid.shape if self.grid is not None
+                               else (1, 1)),
             "ks": list(self.ks),
             "batch_size": int(cfg.batch_size),
             "hidden_size": int(cfg.hidden_size),
@@ -892,33 +1004,44 @@ class NeuralAdmixtureTrainer:
         temporary file: ``format``, ``epoch`` (the next one), ``meta``
         (JSON), ``param/{name}`` in params_to_numpy's layout and, per
         parameter, ``adam/{name}/exp_avg``, ``exp_avg_sq`` (the same layout)
-        and ``step``, as plain arrays."""
+        and ``step``, as plain arrays. On a grid the file is the same, at
+        full width: data row 0's ranks gather V, the Ps and their moments
+        over their snp group, and rank 0 writes."""
         t = time.perf_counter()
+        grid = self.grid
+        if grid is not None and grid.d != 0:
+            return
+        groups = {key: {} for key in CKPT_GROUPS}
+        steps = {}
+        for name, p, transpose in qp.param_layout(model):
+            groups["param"][name] = qp.to_layout(p, transpose)
+            state = opt.state.get(p)
+            if state:
+                for key in CKPT_GROUPS[1:]:
+                    groups[key][name] = qp.to_layout(state[key], transpose)
+                steps[name] = np.int64(int(state["step"]))
+        groups = {key: _flatten(gather_snp(_unflatten(g), grid,
+                                           f"ckpt_{key}"))
+                  for key, g in groups.items()}
+        if grid is not None and grid.rank != 0:
+            return
         arrays = {"format": np.bytes_(CKPT_FORMAT.encode()),
                   "epoch": np.int64(epoch),
                   "meta": np.bytes_(json.dumps(self._ckpt_meta()).encode())}
-        for name, p, transpose in qp.param_layout(model):
-            arrays[f"param/{name}"] = qp.to_layout(p, transpose)
-            state = opt.state.get(p)
-            if state:
-                for key in ("exp_avg", "exp_avg_sq"):
-                    arrays[f"adam/{name}/{key}"] = qp.to_layout(state[key],
-                                                                transpose)
-                arrays[f"adam/{name}/step"] = np.int64(int(state["step"]))
+        arrays.update({_ckpt_key(key, name): a for key, g in groups.items()
+                       for name, a in g.items()})
+        arrays.update({_ckpt_key("step", name): n
+                       for name, n in steps.items()})
         path = self.cfg.checkpoint_path
         tmp = f"{path}.tmp.npz"
         np.savez(tmp, **arrays)
         os.replace(tmp, path)
         self.phase_seconds["save"] = time.perf_counter() - t
 
-    def _load_checkpoint(self, model, opt) -> int:
-        """Restore ``cfg.checkpoint_path`` into the model and the optimizer
-        and return its next epoch; 0 (start fresh) when there is no file.
-        Refuses a file of another layout and any hyperparameter change."""
-        path = self.cfg.checkpoint_path
-        if not os.path.exists(path):
-            return 0
-        t = time.perf_counter()
+    def _read_checkpoint(self, path: str):
+        """(epoch, {group: {layout name: array}} of CKPT_GROUPS, {layout
+        name: Adam's step}) of ``path``, at full width; refuses a file of
+        another layout and any hyperparameter change."""
         with np.load(path) as data:
             fmt = (bytes(data["format"]).decode() if "format" in data.files
                    else None)
@@ -929,6 +1052,9 @@ class NeuralAdmixtureTrainer:
                     "writes another layout); refusing to resume.")
             saved = json.loads(bytes(data["meta"]).decode())
             now = self._ckpt_meta()
+            saved_mesh = saved.pop("mesh_shape", None)
+            now_mesh = now.pop("mesh_shape")
+            # Keys absent from the file (an older one) are not compared.
             diffs = {k: (saved[k], now[k]) for k in now
                      if k in saved and saved[k] != now[k]}
             if diffs:
@@ -937,22 +1063,72 @@ class NeuralAdmixtureTrainer:
                     "refusing to resume. Mismatches (checkpoint vs now): "
                     + ", ".join(f"{k}: {a} vs {b}"
                                 for k, (a, b) in sorted(diffs.items())))
-            epoch = int(data["epoch"])
-            layout = qp.param_layout(model)
-            with torch.no_grad():
-                for name, p, transpose in layout:
-                    p.copy_(qp.from_layout(data[f"param/{name}"], transpose))
-            index = {id(p): i for i, p in
-                     enumerate(opt.param_groups[0]["params"])}
-            state = {}
+            if saved_mesh is not None and list(saved_mesh) != now_mesh:
+                log.info(f"    Checkpoint was trained on mesh "
+                         f"{tuple(saved_mesh)}; resharding onto "
+                         f"{tuple(now_mesh)} on resume.")
+            names = [n[len("param/"):] for n in data.files
+                     if n.startswith("param/")]
+            steps = {n: int(data[_ckpt_key("step", n)]) for n in names
+                     if _ckpt_key("step", n) in data.files}
+            groups = {key: {n: data[_ckpt_key(key, n)] for n in names
+                            if key == "param" or n in steps}
+                      for key in CKPT_GROUPS}
+            return int(data["epoch"]), groups, steps
+
+    def _load_checkpoint(self, model, opt) -> int:
+        """Restore ``cfg.checkpoint_path`` into the model and the optimizer
+        and return its next epoch; 0 (start fresh) when there is no file.
+        On a grid every rank reads the file and cuts its SNP block of V, the
+        Ps and their moments; the ranks first agree that each found the
+        same file at the same epoch, or every rank raises: none trains from
+        a start the others do not share."""
+        path = self.cfg.checkpoint_path
+        grid = self.grid
+        t = time.perf_counter()
+        found, error = None, None
+        if os.path.exists(path):
+            try:
+                found = self._read_checkpoint(path)
+            except (OSError, ValueError, KeyError) as exc:
+                error = exc
+        if grid is not None:
+            # (read failed, file found, its epoch) of every rank.
+            mine = torch.tensor(
+                [int(error is not None), int(found is not None),
+                 found[0] if found is not None else -1],
+                dtype=torch.int64, device=grid.comm_device)
+            views = torch.stack(grid.all_gather(
+                mine, (DATA_AXIS, SNP_AXIS), "ckpt_agree")).cpu().numpy()
+            seen = {tuple(v) for v in views[:, 1:].tolist()}
+            if error is None and views[:, 0].any():
+                error = RuntimeError(
+                    f"ranks {np.nonzero(views[:, 0])[0].tolist()} could not "
+                    f"read the checkpoint {path}; refusing to resume.")
+            if error is None and len(seen) > 1:
+                error = RuntimeError(
+                    f"the ranks do not see one checkpoint at {path} (found, "
+                    f"epoch per rank: {views[:, 1:].tolist()}); save_dir "
+                    "must be a path every host sees. Refusing to resume.")
+        if error is not None:
+            raise error
+        if found is None:
+            return 0
+        epoch, groups, steps = found
+        if grid is not None:
+            groups = {key: _flatten(shard_params(_unflatten(g), grid.n_snp,
+                                                 grid.s))
+                      for key, g in groups.items()}
+        layout = qp.param_layout(model)
+        with torch.no_grad():
             for name, p, transpose in layout:
-                if f"adam/{name}/step" in data.files:
-                    state[index[id(p)]] = {
-                        "step": torch.tensor(
-                            float(data[f"adam/{name}/step"])),
-                        **{key: qp.from_layout(data[f"adam/{name}/{key}"],
-                                               transpose)
-                           for key in ("exp_avg", "exp_avg_sq")}}
+                p.copy_(qp.from_layout(groups["param"][name], transpose))
+        index = {id(p): i for i, p in enumerate(opt.param_groups[0]["params"])}
+        state = {index[id(p)]: {
+            "step": torch.tensor(float(steps[name])),
+            **{key: qp.from_layout(groups[key][name], transpose)
+               for key in CKPT_GROUPS[1:]}}
+            for name, p, transpose in layout if name in steps}
         opt.load_state_dict({"state": state,
                              "param_groups": opt.state_dict()["param_groups"]})
         self.phase_seconds["load"] = time.perf_counter() - t

@@ -46,12 +46,14 @@ from ..utils.seeding import generator
 
 
 def project_pca(packed, V: np.ndarray, N: int, block_bytes: int = 1 << 30,
-                device=None, stream=None) -> torch.Tensor:
+                device=None, stream=None, gather_threads=None
+                ) -> torch.Tensor:
     """(N, D) = (G/2) @ V^T of the packed rows (N, W) uint8 and V (D, M),
-    on the packed rows' device (``device`` for a host array)."""
+    on the packed rows' device (``device`` for a host array; streamed, its
+    stager gathers on ``gather_threads`` threads)."""
     m_pad = 4 * packed.shape[1]
     src = PackedRows(packed, N, block_rows_for(m_pad, block_bytes), device,
-                     stream)
+                     stream, gather_threads=gather_threads)
     dev = src.device
     V = np.asarray(V, np.float32)
     Vt = torch.zeros(m_pad, V.shape[0], dtype=torch.float32, device=dev)
@@ -74,7 +76,9 @@ def init_p_unsupervised(packed, V: np.ndarray, N: int, M: int,
     if x_pca is None:
         start, end = rows if rows is not None else (0, N)
         x_pca = project_pca(packed, V, end - start, device=device,
-                            stream=stream)
+                            stream=stream, gather_threads=(
+                                grid.gather_threads if grid is not None
+                                else None))
         if grid is not None:
             x_pca = torch.from_numpy(gather_ragged_rows(
                 x_pca.cpu().numpy(), grid))
@@ -123,7 +127,8 @@ def init_p_supervised_packed(packed, y: np.ndarray, K: int, M: int,
         y = np.asarray(y)[rows[0]:rows[1]]
     N = len(y)
     src = PackedRows(packed, N, block_bytes // (8 * 4 * packed.shape[1]),
-                     device, stream)
+                     device, stream, gather_threads=(
+                         grid.gather_threads if grid is not None else None))
     dev = src.device
     y_t = torch.as_tensor(np.asarray(y, np.int64), device=dev)
     sums = torch.zeros(K, 4 * packed.shape[1], dtype=torch.float64,

@@ -3,10 +3,10 @@
 The JAX package's train/run.py ``main_train`` for the ported slice: a
 PLINK BED, a PGEN or a VCF, one K (``--k``) or a K range (``--min_k`` ..
 ``--max_k``, one head per K, trained jointly), unsupervised or supervised
-(``--pops_path``, one K), on one device with resumable checkpoints
-(``--checkpoint_every``, ``--resume``, SIGTERM) and host streaming
-(``--stream``), or over a grid of ranks. Resident, the packed rows go to the
-device once for the RSVD and the P init and once more for training;
+(``--pops_path``, one K), with resumable checkpoints (``--checkpoint_every``,
+``--resume``, SIGTERM) and host streaming (``--stream``), on one device or
+over a grid of ranks. Resident, the packed rows go to the device once for
+the RSVD and the P init and once more for training;
 streamed (``--stream 1``, or ``auto`` when they do not fit), no phase
 uploads the whole packed matrix: the RSVD, the PCA projection or the
 supervised means, training, the Q pass and the log-likelihood read it block
@@ -18,11 +18,13 @@ NA_TPU_* variables; parallel/): each host starts its ranks, every rank of
 data row d reads only that row's sample rows (the trainer's sample_shard),
 the minor-allele flip follows the code counts of every data row, the RSVD
 and the P init run on the data row's rows with their sketch, coordinates or
-sums joined over the data group, training runs sharded
-(train/engine.py), the log-likelihood is the sum of each rank's part (its
-rows, its SNP block), and rank 0 alone writes. Streaming and checkpoints on
-a grid raise (ROADMAP.md Queue 1 item 12b); everything else outside the
-slice raises NotImplementedError naming the ROADMAP.md item that ports it.
+sums joined over the data group (streamed when the rank's own estimate
+says so), training runs sharded, streamed or resident, with checkpoints
+that every rank joins (train/engine.py), the log-likelihood is the sum of
+each rank's part (its rows, its SNP block), and rank 0 alone writes. The
+checkpoint lives in ``--save_dir``, which every host must see. Everything
+outside the slice raises NotImplementedError naming the ROADMAP.md item
+that ports it.
 """
 import logging
 import time
@@ -42,7 +44,7 @@ from ..parallel.distributed import is_master, spawn_grid
 from ..parallel.grid import DATA_AXIS, SNP_AXIS
 from ..utils.hbm import should_stream_host
 from ..utils.logger import log, setup_logging
-from .engine import ITEM_12B, NeuralAdmixtureTrainer, TrainConfig, not_ported
+from .engine import NeuralAdmixtureTrainer, TrainConfig, not_ported
 from .init import (encode_populations, init_p_supervised_packed,
                    init_p_unsupervised)
 
@@ -107,7 +109,23 @@ def _train_config(args, ks, stream, device: str, **kw) -> TrainConfig:
         n_components=int(args.n_components), ks=ks,
         supervised_loss_weight=float(args.supervised_loss_weight),
         sample_block=int(args.sample_block or 1), device=device,
-        stream=stream, **kw)
+        stream=stream, checkpoint_every=int(args.checkpoint_every or 0),
+        checkpoint_path=str(Path(args.save_dir) / f"{args.name}_ckpt.npz"),
+        resume=bool(args.resume), **kw)
+
+
+def _setup_stream(stream, n: int, W: int, args, device) -> bool:
+    """Whether the RSVD and the P init stream ``n`` packed rows of ``W``
+    bytes from host memory: ``--stream`` when given, else by the RSVD's
+    estimate (the larger of the two)."""
+    return stream if stream is not None else should_stream_host(
+        resident_bytes(n, W, int(args.n_components)), device=device)
+
+
+def _make_save_dir(args) -> None:
+    """Create ``--save_dir`` where checkpoints need it before training."""
+    if int(args.checkpoint_every or 0) or args.resume:
+        Path(args.save_dir).mkdir(parents=True, exist_ok=True)
 
 
 def _labels(args, N: int, K):
@@ -145,11 +163,7 @@ def _train_grid(args, t0: float, hosts) -> int:
     """Start this host's ranks of the grid (each runs :func:`_train_rank`)."""
     ks = _ks(args)[3]
     stream = STREAM_MAP[getattr(args, "stream", "auto")]
-    if stream:
-        raise not_ported("--stream 1 on a grid of ranks", ITEM_12B)
-    if int(args.checkpoint_every or 0) or args.resume:
-        raise not_ported("--checkpoint_every and --resume on a grid of "
-                         "ranks", ITEM_12B)
+    _make_save_dir(args)
     N, M = input_dims(args.data_path)
     shape = _resolve_mesh_shape(args, hosts)
     n_ranks = (shape[0] * shape[1] if shape else
@@ -187,27 +201,31 @@ def _train_rank(grid, args, stream, N: int, M: int, t0: float) -> None:
         log.setLevel(logging.WARNING)
     y_num = _labels(args, N, K)
     rows, device = (start, end), grid.device
-    local = torch.from_numpy(packed).to(device)
+    setup_stream = _setup_stream(stream, end - start, packed.shape[1], args,
+                                 device)
+    local = packed if setup_stream else torch.from_numpy(packed).to(device)
 
     log.info("")
     log.info("    Running SVD...")
     log.info("")
     t_svd = time.time()
     V = rsvd(local, N, M, int(args.n_components), int(args.seed),
-             rows=rows, grid=grid)
+             device=device, stream=setup_stream, rows=rows, grid=grid)
     log.info(f"    Total time SVD: {time.time() - t_svd:.4f}s")
     log.info("")
     if y_num is not None:
         log.info("")
         log.info("    Running Supervised Mode...")
         log.info("")
-        P_init = init_p_supervised_packed(local, y_num, K, M, rows=rows,
+        P_init = init_p_supervised_packed(local, y_num, K, M, device=device,
+                                          stream=setup_stream, rows=rows,
                                           grid=grid)
     else:
         log.info("")
         log.info("    Running Gaussian Mixture in PCA subspace...")
         log.info("")
         P_init = init_p_unsupervised(local, V, N, M, ks, int(args.seed),
+                                     device=device, stream=setup_stream,
                                      rows=rows, grid=grid)
     del local
 
@@ -250,11 +268,8 @@ def main_train(args, t0: float, hosts=None) -> int:
     packed, N, M = read_packed(args.data_path)
     log.info(f"    Data contains {N} samples and {M} SNPs.")
     y_num = _labels(args, N, K)
-    # The RSVD and the P init share one upload, or stream (auto: by the
-    # RSVD's estimate, the larger of the two).
-    setup_stream = stream if stream is not None else should_stream_host(
-        resident_bytes(N, packed.shape[1], int(args.n_components)),
-        device=device)
+    # The RSVD and the P init share one upload, or stream.
+    setup_stream = _setup_stream(stream, N, packed.shape[1], args, device)
     rows = packed if setup_stream else torch.from_numpy(packed).to(device)
 
     log.info("")
@@ -279,15 +294,9 @@ def main_train(args, t0: float, hosts=None) -> int:
                                      device=device, stream=setup_stream)
     del rows
 
-    checkpoint_every = int(args.checkpoint_every or 0)
-    if checkpoint_every or args.resume:
-        Path(args.save_dir).mkdir(parents=True, exist_ok=True)
-    cfg = _train_config(
-        args, ks, stream, str(device), progress=not args.no_progress,
-        checkpoint_every=checkpoint_every,
-        checkpoint_path=str(Path(args.save_dir) / f"{args.name}_ckpt.npz"),
-        resume=bool(args.resume))
-    trainer = NeuralAdmixtureTrainer(cfg)
+    _make_save_dir(args)
+    trainer = NeuralAdmixtureTrainer(_train_config(
+        args, ks, stream, str(device), progress=not args.no_progress))
     Qs, Ps, params = trainer.launch_training(P_init, packed, V, M, N,
                                              pops=y_num)
 

@@ -14,8 +14,9 @@ and the port's one-rank runs.
     CLI runs (rtol 1e-4, atol 1e-5), rank 0 alone writing and every rank
     naming its rows; two hosts of two ranks each through the NA_TPU_*
     variables; ``infer --num_gpus 0 --mesh 2x1`` (rtol 2e-5, atol 2e-6);
-  * no fallback: an auto policy that would stream on a grid, a --mesh
-    larger than the visible cards, and --num_gpus above them (the clamp).
+  * no fallback: a --mesh larger than the visible cards, and --num_gpus
+    above them (the clamp). Streaming and checkpoints on a grid:
+    tests/test_torch_port_grid_stream.py, test_torch_port_grid_checkpoint.py.
 
 This module imports neither JAX nor tests.conftest at its top: the ranks
 import it to find their function.
@@ -287,24 +288,6 @@ def test_cli_infer_2x1_matches_one_rank(tmp_path):
     np.testing.assert_allclose(np.loadtxt(tmp_path / "grid.2.Q"),
                                np.loadtxt(tmp_path / "one.2.Q"),
                                rtol=2e-5, atol=2e-6)
-
-
-def test_grid_auto_policy_that_would_stream_raises_item_12b(tmp_path):
-    """A capacity the resident rows do not fit: one device would stream, a
-    grid refuses (ROADMAP.md item 12b) instead of running another way.
-
-    Each rank's estimate on the demo (m_pad 10,240, 2,560 packed bytes a
-    row): its 53 rows 135,680 B, half a batch 81,920 B, the SNP plane
-    10,240 x (8 + 2) x 16 = 1,638,400 B; resident 1,856,000 B against a
-    budget of 0.9 x 0.00185 GiB = 1,787,792 B, streamed 1,720,320 B."""
-    r = subprocess.run(
-        [sys.executable, "-m", "neural_admixture_tpu_torch.entry",
-         *_cli(tmp_path, "m", extra=("--mesh", "2x1"))], cwd=REPO,
-        env={**os.environ, "NA_TPU_HBM_CAPACITY_GB": "0.00185"},
-        capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0
-    assert "item 12b" in r.stderr, r.stderr[-3000:]
-    assert not list(tmp_path.glob("m*"))
 
 
 def test_mesh_larger_than_the_cards_raises_the_jax_message(monkeypatch,

@@ -407,8 +407,8 @@ def test_cli_train_on_card_without_cuda_exits_nonzero(tmp_path):
     (["--profile_dir", "t"], NotImplementedError, "item 13"),
     # Several cards on a host without one: no CUDA device, no CPU run.
     (["--num_gpus", "2"], RuntimeError, "no CUDA device"),
-    # Streaming on a grid is ROADMAP.md Queue 1 item 12b.
-    (["--mesh", "2x1", "--stream", "1"], NotImplementedError, "item 12b"),
+    # On a grid as on one device.
+    (["--mesh", "2x1", "--cv", "3"], NotImplementedError, "item 13"),
 ])
 def test_unported_train_options_raise(tmp_path, extra, exc, match):
     argv = ["train", "--data_path", DEMO_BED, "--save_dir", str(tmp_path),
@@ -464,9 +464,8 @@ def test_stream_values_follow_the_jax_package(monkeypatch, tmp_path, stream,
 
 def test_cli_train_mesh_1x1_is_one_device(tmp_path):
     """--mesh 1x1 trains on the one device --num_gpus names, as the JAX
-    package does (train/run.py:45-54): the same .Q as no mesh; a 2x1 grid
-    does not checkpoint yet (ROADMAP.md item 12b) and '2x' fails the format
-    check (entry.py:280-284)."""
+    package does (train/run.py:45-54): the same .Q as no mesh; '2x' fails
+    the format check (entry.py:280-284)."""
     argv = ["train", "--k", "3", "--data_path", DEMO_BED, "--save_dir",
             str(tmp_path), "--epochs", "2", "--seed", "42", "--num_gpus",
             "0", "--no_progress"]
@@ -474,9 +473,6 @@ def test_cli_train_mesh_1x1_is_one_device(tmp_path):
     assert tentry.main(argv + ["--name", "mesh", "--mesh", "1x1"]) == 0
     np.testing.assert_array_equal(np.loadtxt(tmp_path / "mesh.3.Q"),
                                   np.loadtxt(tmp_path / "plain.3.Q"))
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tentry.main(argv + ["--name", "m", "--mesh", "2x1",
-                            "--checkpoint_every", "1"])
     with pytest.raises(ValueError, match="--mesh must look like"):
         tentry.main(argv + ["--name", "m", "--mesh", "2x"])
 
