@@ -81,6 +81,16 @@ non-zero exit and no result line:
      collectives, each collective), host gather rate, the pinned copy of a
      step's slice and samples/s streamed beside resident; the staged grid
      infer_q bit-equal to the block uploaded whole and to 6d's;
+  6f. full width, cross-validation, restarts and a traced run (K = 8,
+     phase 4's rows, 2 epochs): run_cross_validation over 3 folds, each
+     fold's seconds (RSVD, init, training, projection, LL), its cv_error
+     against the card's log-likelihood of the same Q and P (rtol 1e-5) and
+     its exact launches; fit_restarts with R = 2 on one PCA projection,
+     restart 0 equal to phase 6's run and the kept restart bit for bit its
+     run rebuilt by hand; phase 6's run under ``profile_dir``, bit-equal to
+     it, the trace's K2-K5 counts equal to the launch counters, each
+     epoch's time traced against untraced and the device's busy share over
+     each epoch span;
   7. CLI: ``train`` on the demo BED on the card and on the CPU (K = 7, a
      K range 2..4, and supervised with the argmax labels of the reference's
      K = 7 Q, which name 5 populations): the output files, the .npz through
@@ -96,7 +106,11 @@ non-zero exit and no result line:
      2x1``; a grid on cards needs a card a rank) with ``--stream 1``
      writes the .Q and .P of the resident grid under NA_TPU_STRATIFIED=1
      byte for byte, and one with ``--checkpoint_every 2`` sent SIGTERM
-     exits 143, then its ``--resume`` exits 0;
+     exits 143, then its ``--resume`` exits 0; on the card ``--cv 3
+     --min_k 2 --max_k 4 --profile_dir`` writes the csv, four traces and the
+     .Q and .P of the run without them byte for byte, ``--k 7
+     --init_restarts 3`` keeps a log-likelihood no lower than the one run's,
+     and on two CPU ranks ``--mesh 2x1 --init_restarts 2`` exits 0;
   A/B (only with ``--ab DIR``): the kernels of DIR, a copy of another
      commit's csrc/ with the same C interfaces (the parent's), built into
      DIR/build while the phases run, timed against the checkout's in the
@@ -108,8 +122,8 @@ non-zero exit and no result line:
      instance's ptxas registers of DIR's build against the checkout's;
   8. the run's seconds, the card's name and power limit, one JSON line with
      every kernel's numbers (those of the phases run; launches: phases 6,
-     6b, 6c's streamed runs and 6d's and 6e's ranks, summed, with 6d's and
-     6e's per rank in ``grid_launches_per_rank``);
+     6b, 6c's streamed runs, 6d's and 6e's ranks and 6f, summed, with 6d's
+     and 6e's per rank in ``grid_launches_per_rank``);
   9. the last line: {"ok": true, "device": {...}}.
 
 ``--phases env,build,kernels`` runs only those phases (a short check of a
@@ -1587,7 +1601,7 @@ def phase_train(dev, packed):
     done(t)
     return kernels, {"V": V, "P_init": P_init, "x_pca": x_pca,
                      "setup": setup, "run": (Qs, Ps, params),
-                     "trainer": trainer}
+                     "trainer": trainer, "ll": ll}
 
 
 def work_shapes(B, W, k, D=D_FULL):
@@ -2496,6 +2510,179 @@ def phase_grid_stream(dev, card, packed, trained, infer_params, infer_Qs):
     return totals, per_rank
 
 
+def phase_cv(dev, packed, trained):
+    """Cross-validation, restarts and a traced run at full width (phase 4's
+    rows, K = 8, batch 800, sample_block 16, 2 epochs). CV: 3 folds through
+    train/cv.py run_cross_validation, each fold's seconds by part, its
+    cv_error against the card's log-likelihood of the same Q and P, its
+    exact launches; restarts: R = 2 through train/run.py fit_restarts on one
+    PCA projection, restart 0 equal to phase 6's run and the kept one bit
+    for bit its restart rebuilt by hand; the trace: phase 6's run under
+    ``profile_dir``, bit-equal to it, K2-K5 in the trace as often as the
+    counters say, each epoch's busy share. Returns the phase's launches."""
+    from neural_admixture_tpu_torch.train import init as init_mod
+    from neural_admixture_tpu_torch.train.cv import (run_cross_validation,
+                                                     run_fold)
+    from neural_admixture_tpu_torch.train.run import fit_restarts
+    from neural_admixture_tpu_torch.utils import trace as tr
+    t = phase("6f. full width: cross-validation (3 folds), restarts (R = 2), "
+              "a traced run")
+    k, V, P_init = K_FULL, trained["V"], trained["P_init"]
+    nb = block_geometry(N_FULL, TRAIN_BATCH, BLOCK)[1]
+    n_q = -(-N_FULL // 1024)
+    totals = dict.fromkeys(COUNTERS, 0)
+
+    def config(**kw):
+        return TrainConfig(**{
+            "epochs": TRAIN_EPOCHS, "batch_size": TRAIN_BATCH, "seed": SEED,
+            "hidden_size": H_FULL, "n_components": D_FULL, "ks": [k],
+            "progress": False, "sample_block": BLOCK, "device": str(dev),
+            **kw})
+
+    def add(counts):
+        for name, c in counts.items():
+            totals[name] += c
+
+    # Cross-validation: each fold's launches, parts and cv_error.
+    folds = []
+
+    def fold(packed_tr, packed_val, *args):
+        reset_counts()
+        res = run_fold(packed_tr, packed_val, *args)
+        counts = read_counts()
+        n_tr, n_val = packed_tr.shape[0], packed_val.shape[0]
+        want = expected_counts("default", block_geometry(
+            n_tr, TRAIN_BATCH, BLOCK)[1], 1, -(-n_tr // 1024)
+            + -(-n_val // 1024))
+        if counts != want:
+            raise AssertionError(f"fold {len(folds) + 1}: launches {counts}, "
+                                 f"expected {want}")
+        card = -loglikelihood_packed(packed_val, M_FULL, res.Ps[0],
+                                     res.q_val[0], device_threshold=0,
+                                     device=dev) / n_val
+        rel = abs(card - res.errors[0]) / abs(res.errors[0])
+        if not np.isfinite(res.errors[0]) or rel > 1e-5:
+            raise AssertionError(f"fold {len(folds) + 1}: cv_error "
+                                 f"{res.errors[0]} against the card's "
+                                 f"{card} (rel {rel:.2e})")
+        add(counts)
+        folds.append(res)
+        print(f"   fold {len(folds)}: {n_tr} train / {n_val} held out; "
+              + ", ".join(f"{n} {s:.3f} s" for n, s in res.seconds.items())
+              + f"; cv_error {res.errors[0]:.6f} (the card's fp32-block LL "
+              f"of the same Q and P: rel {rel:.2e}, tolerance 1e-5); launches "
+              + ", ".join(f"{c} {n}" for n, c in counts.items() if c),
+              flush=True)
+        return res
+
+    with tempfile.TemporaryDirectory() as d:
+        t_s = time.perf_counter()
+        out = run_cross_validation(packed, N_FULL, M_FULL, [k], 3, SEED,
+                                   config(), "cv", d, fold=fold)
+        cv_s = time.perf_counter() - t_s
+        with open(os.path.join(d, "cv.cv_errors.csv")) as f:
+            rows = f.read().splitlines()
+    mean = float(np.mean([f.errors[0] for f in folds]))
+    if len(folds) != 3 or rows[0] != "K,cv_error_mean,cv_error_std" or \
+            rows[1] != f"{k},{out[k][0]:.6f},{out[k][1]:.6f}" or \
+            out[k][0] != mean:
+        raise AssertionError(f"CV output {rows}, {out}")
+    print(f"   run_cross_validation, 3 folds: {cv_s:.1f} s; CV error (K={k}) "
+          f"{out[k][0]:.6f} ± {out[k][1]:.6f}; csv {rows[1]!r}")
+
+    # Restarts: one projection, restart r from seed + r, the best kept.
+    calls = [0]
+    real_project = init_mod.project_pca
+
+    def counting(*args, **kw):
+        calls[0] += 1
+        return real_project(*args, **kw)
+
+    every = []
+
+    def lls_of(Qs, Ps):
+        every.append([loglikelihood_packed(packed, M_FULL, P, Q,
+                                           device_threshold=0, device=dev)
+                      for Q, P in zip(Qs, Ps)])
+        return every[-1]
+
+    init_mod.project_pca = counting
+    try:
+        packed_dev = torch.from_numpy(packed).to(dev)
+        x_pca = init_mod.pca_coords(packed_dev, V, N_FULL)
+        del packed_dev
+        reset_counts()
+        t_s = time.perf_counter()
+        best, Qs, Ps, params, lls = fit_restarts(
+            NeuralAdmixtureTrainer(config()), packed, V, M_FULL, N_FULL, [k],
+            2, SEED, lls_of, x_pca=x_pca)
+        restarts_s = time.perf_counter() - t_s
+        counts = read_counts()
+    finally:
+        init_mod.project_pca = real_project
+    want = {n: 2 * c for n, c in expected_counts("default", nb, 1,
+                                                 n_q).items()}
+    if counts != want or calls[0] != 1:
+        raise AssertionError(f"restarts: launches {counts}, expected {want}; "
+                             f"{calls[0]} projections")
+    if every[0][0] != trained["ll"]:
+        raise AssertionError(f"restart 0's log-likelihood {every[0][0]} is "
+                             f"not phase 6's {trained['ll']}")
+    add(counts)
+    P_r = init_p_unsupervised(None, V, N_FULL, M_FULL, [k], SEED + best,
+                              x_pca=x_pca)
+    rebuilt = NeuralAdmixtureTrainer(config(seed=SEED + best)
+                                     ).launch_training(P_r, packed, V,
+                                                       M_FULL, N_FULL)
+    if not same_run(rebuilt, (Qs, Ps, params)):
+        raise AssertionError(f"the kept restart {best} is not its run "
+                             "rebuilt by hand")
+    print(f"   fit_restarts R=2: {restarts_s:.1f} s; log-likelihoods "
+          + ", ".join(f"restart {r} {ll[0]:.6e}" for r, ll in
+                      enumerate(every))
+          + f" (restart 0 = phase 6's); kept restart {best}, bit for bit its "
+          f"run rebuilt by hand; {calls[0]} PCA projection; launches "
+          + ", ".join(f"{c} {n}" for n, c in counts.items() if c))
+
+    # The trace of phase 6's run.
+    with tempfile.TemporaryDirectory() as d:
+        reset_counts()
+        trainer = NeuralAdmixtureTrainer(config(profile_dir=d))
+        run = trainer.launch_training(P_init, packed, V, M_FULL, N_FULL)
+        counts = read_counts()
+        path = os.path.join(d, "epochs_rank0.json")
+        size = os.path.getsize(path)
+        events = tr.load_events(path)
+    if not same_run(run, trained["run"]):
+        raise AssertionError("the traced run is not phase 6's bit for bit")
+    add(counts)
+    traced = tr.kernel_counts(events)
+    want = {n: counts[n] for n in traced}
+    want["xv"] -= n_q  # the Q pass runs after the trace
+    if traced != want:
+        raise AssertionError(f"the trace's kernels {traced}, the counters' "
+                             f"{want}")
+    spans = tr.epoch_spans(events)
+    if [name for name, _, _ in spans] != [f"epoch {e}" for e in
+                                          range(TRAIN_EPOCHS)]:
+        raise AssertionError(f"epoch spans {spans}")
+    untraced = trained["trainer"].epoch_seconds
+    print(f"   traced run: bit for bit phase 6's; trace {size / 1e6:.1f} MB; "
+          "kernels in the trace " + ", ".join(
+              f"{c} {n}" for n, c in traced.items() if c)
+          + " = the counters' (less the Q pass's xv)")
+    for (name, a, b), s_traced, s_plain in zip(
+            spans, trainer.epoch_seconds, untraced):
+        in_span = tr.kernel_counts(events, a, b)
+        print(f"   {name}: traced {1e3 * s_traced:.1f} ms against untraced "
+              f"{1e3 * s_plain:.1f} ms (phase 6); span {(b - a) / 1e3:.1f} "
+              f"ms, device busy {100 * tr.busy_share(events, a, b):.1f}% "
+              "(kernels, copies and memsets over the span); kernels "
+              + ", ".join(f"{c} {n}" for n, c in in_span.items() if c))
+    done(t)
+    return totals
+
+
 def phase_cli_train(dev):
     """``train`` on the demo BED through the CLI, on the card and on the
     CPU, for one K, a K range and supervised mode: the output files, one
@@ -2608,7 +2795,94 @@ def phase_cli_train(dev):
         cli_grid_stream_and_preempt(d)
         cli_other_formats(d)
         cli_clamp(d)
+        cli_cv_restarts_trace(d, packed, M)
     done(t)
+
+
+def cli_cv_restarts_trace(d, packed, M):
+    """On the card: ``--cv 3 --min_k 2 --max_k 4 --profile_dir`` writes the
+    csv, a trace for each fold and the fit (its epoch spans, the kernels in
+    them, the busy share), and the .Q and .P of the run without them
+    (``k2to4_gpu``) byte for byte; ``--k 7 --init_restarts 3`` logs its
+    three restarts and keeps a log-likelihood no lower than the one run's
+    (``k7_gpu``, its restart 0); on two CPU ranks ``--mesh 2x1
+    --init_restarts 2`` exits 0."""
+    from neural_admixture_tpu_torch.utils import trace as tr
+
+    def cli(name, *flags, gpus="1"):
+        t_cli = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "neural_admixture_tpu_torch.entry",
+             "train", "--data_path", DEMO_BED, "--save_dir", d, "--name",
+             name, "--seed", "42", "--num_gpus", gpus, "--no_progress",
+             *flags], cwd=REPO, capture_output=True, text=True)
+        if r.returncode:
+            raise AssertionError(f"train {name}: exit {r.returncode}\n"
+                                 f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+        return r.stdout.splitlines(), time.perf_counter() - t_cli
+
+    def ll(name, k):
+        return loglikelihood_packed(
+            packed, M, np.loadtxt(os.path.join(d, f"{name}.{k}.P")),
+            np.loadtxt(os.path.join(d, f"{name}.{k}.Q")))
+
+    traces = os.path.join(d, "traces")
+    lines, secs = cli("k2to4_cv", "--min_k", "2", "--max_k", "4", "--epochs",
+                      "5", "--cv", "3", "--profile_dir", traces)
+    with open(os.path.join(d, "k2to4_cv.cv_errors.csv")) as f:
+        rows = f.read().splitlines()
+    if [r.split(",")[0] for r in rows] != ["K", "2", "3", "4"]:
+        raise AssertionError(f"--cv 3 wrote {rows}")
+    for k in (2, 3, 4):
+        for m in ("Q", "P"):
+            with open(os.path.join(d, f"k2to4_cv.{k}.{m}"), "rb") as fa, \
+                    open(os.path.join(d, f"k2to4_gpu.{k}.{m}"), "rb") as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f"--cv 3 --profile_dir wrote "
+                                         f"another .{k}.{m}")
+    names = sorted(os.listdir(traces))
+    if names != ["epochs_rank0.json"] + [f"epochs_rank0_{i}.json"
+                                         for i in (1, 2, 3)]:
+        raise AssertionError(f"traces {names}")
+    events = tr.load_events(os.path.join(traces, "epochs_rank0_3.json"))
+    spans = tr.epoch_spans(events)
+    if [n for n, _, _ in spans] != [f"epoch {e}" for e in range(5)]:
+        raise AssertionError(f"the fit's epoch spans {spans}")
+    kernels = tr.kernel_counts(events)
+    if not all(kernels[n] for n in ("xv", "dq_dp", "loss_dq_dp", "dv")):
+        raise AssertionError(f"the fit's trace holds kernels {kernels}")
+    print(f"   train K=2..4 --cv 3 --profile_dir --num_gpus 1: {secs:.1f} s; "
+          + "; ".join(ln.strip() for ln in lines if "CV error (K=" in ln)
+          + "; .Q and .P byte for byte the run without --cv; 4 traces (3 "
+          "folds, the fit); the fit's kernels " + ", ".join(
+              f"{c} {n}" for n, c in kernels.items() if c)
+          + "; busy " + ", ".join(
+              f"{n} {100 * tr.busy_share(events, a, b):.1f}%"
+              for n, a, b in spans))
+
+    lines, secs = cli("k7_r3", "--k", "7", "--epochs", "5",
+                      "--init_restarts", "3")
+    started = [ln.strip() for ln in lines if "Restart " in ln]
+    if started != [f"Restart {r + 1}/3 (seed {42 + r})..." for r in
+                   range(3)]:
+        raise AssertionError(f"--init_restarts 3 logged {started}")
+    ll3, ll1 = ll("k7_r3", 7), ll("k7_gpu", 7)
+    if ll3 < ll1 - 1e-6:
+        raise AssertionError(f"--init_restarts 3 kept LL {ll3} below the one "
+                             f"run's {ll1}")
+    gates = demo_gates(np.loadtxt(os.path.join(d, "k7_r3.7.Q")),
+                       np.loadtxt(os.path.join(d, "k7_r3.7.P")))
+    print(f"   train K=7 --init_restarts 3 --num_gpus 1: {secs:.1f} s; "
+          f"log-likelihood {ll3:,.1f} against one run's {ll1:,.1f} (golden "
+          f"{GOLDEN_LL:,}); matched Q corr mean {gates[0]:.4f}, 2nd smallest "
+          f"{gates[1]:.4f}; P corr mean {gates[2]:.4f}, min {gates[3]:.4f}")
+
+    lines, secs = cli("g_r2", "--k", "2", "--epochs", "4", "--batch_size",
+                      "64", "--hidden_size", "32", "--mesh", "2x1",
+                      "--init_restarts", "2", gpus="0")
+    print(f"   train --num_gpus 0 --mesh 2x1 --init_restarts 2: {secs:.1f} s; "
+          + "; ".join(ln.strip() for ln in lines
+                      if "Restart " in ln or "Log-likelihood" in ln))
 
 
 def cli_stream_and_preempt(d):
@@ -2984,7 +3258,8 @@ def phase_ab(dev, parent_dir, parent_build, logs):
 
 
 PHASES = ("env", "build", "kernels", "infer", "readers", "cli_infer",
-          "train", "multihead", "stream", "grid", "grid_stream", "cli_train")
+          "train", "multihead", "stream", "grid", "grid_stream", "cv",
+          "cli_train")
 
 
 def parse_args(argv):
@@ -2993,8 +3268,8 @@ def parse_args(argv):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated phases to run, in their fixed "
                     "order (default: all): " + ", ".join(PHASES) + "; "
-                    "readers and train need infer, multihead, stream and "
-                    "grid need train, grid_stream needs grid")
+                    "readers and train need infer, multihead, stream, "
+                    "grid and cv need train, grid_stream needs grid")
     ap.add_argument("--ab", default=None, metavar="DIR",
                     help="also time the kernels built from DIR (a copy of "
                     "another commit's csrc/, e.g. the parent's unpacked "
@@ -3007,7 +3282,8 @@ def parse_args(argv):
         ap.error(f"unknown phases {bad}; choose from {list(PHASES)}")
     for need, what in (("infer", "readers"), ("infer", "train"),
                        ("train", "multihead"), ("train", "stream"),
-                       ("train", "grid"), ("grid", "grid_stream")):
+                       ("train", "grid"), ("train", "cv"),
+                       ("grid", "grid_stream")):
         if what in args.phases and need not in args.phases:
             ap.error(f"phase {what} needs phase {need}")
     return args
@@ -3065,6 +3341,8 @@ def main(argv=None):
             entry["grid_launches_per_rank"] = {
                 tag: [c[entry["name"]] for c in counts]
                 for tag, counts in per_rank.items()}
+    if "cv" in run:
+        add_launches(kernels, phase_cv(dev, packed, trained))
     if "infer" in run:
         del packed
     if "cli_train" in run:

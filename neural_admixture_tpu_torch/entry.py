@@ -18,10 +18,12 @@ NA_TPU_NUM_PROCESSES (the number of hosts) and NA_TPU_PROCESS_ID (this
 host's index), each host starting its own ranks. ``--num_gpus`` above the
 visible cards warns and uses those there are, as in the JAX package.
 
-Every flag of the JAX package parses; those outside the ported slice
-(``--cv``, ``--init_restarts > 1``, ``--profile_dir``, and ``--stream 1``
-or checkpoints on a grid) raise "not ported yet" with the ROADMAP.md item
-that ports them. The JAX package's environment variables
+Every flag of the JAX package runs: K-fold cross-validation (``--cv``, one
+process only: a grid of ranks refuses it, as the JAX package refuses it
+across processes), independently seeded restarts (``--init_restarts``)
+and a torch.profiler trace of the epochs (``--profile_dir``), on one
+device and, but for ``--cv``, on a grid. The JAX package's environment
+variables
 ``NA_TPU_INDEXED``, ``NA_TPU_SPLIT_LOSS`` and ``NA_TPU_FORCE_MASKED``
 choose the training program (train/engine.py).
 """
@@ -189,19 +191,29 @@ def parse_train_args(argv: List[str]) -> argparse.Namespace:
                         "resident on the device; 'auto' streams only when "
                         "they do not fit.")
     parser.add_argument("--init_restarts", required=False, default=1,
-                        type=int, help="Independently seeded runs, the best "
-                        "kept by log-likelihood; more than 1 is not ported "
-                        "yet.")
+                        type=int, help="Train this many independently "
+                        "seeded runs (fresh GMM init and training draws, "
+                        "seeds seed..seed+R-1; V from --seed) and keep the "
+                        "best by log-likelihood. The converged LL varies by "
+                        "a few thousand units with the init draw; restarts "
+                        "recover that spread at R x the training cost. "
+                        "Default 1 (reference behavior).")
     parser.add_argument("--cv", required=False, default=None, type=int,
-                        help="Number of folds for cross-validation; not "
-                        "ported yet.")
+                        help="Number of folds for cross-validation before "
+                        "the full-data fit: per fold, multi-head training "
+                        "on the other folds, the held-out samples projected "
+                        "through the trained encoder, and per K the mean "
+                        "and std of the validation error logged and written "
+                        "to {name}.cv_errors.csv. One process only: a grid "
+                        "of ranks refuses it.")
     parser.add_argument("--threads", required=False, default=1, type=int,
                         help="Number of threads to be used during execution.")
     parser.add_argument("--no_progress", action="store_true",
                         help="Disable the epoch progress line.")
     parser.add_argument("--profile_dir", required=False, default=None,
-                        type=str, help="Profiler trace directory; not ported "
-                        "yet.")
+                        type=str, help="Write a torch.profiler (Chrome "
+                        "JSON) trace of the training epochs to this "
+                        "directory, one file per rank.")
     parser.add_argument("--checkpoint_every", required=False, default=0,
                         type=int, help="Save a resumable checkpoint "
                         "({save_dir}/{name}_ckpt.npz) every N epochs (0 = "

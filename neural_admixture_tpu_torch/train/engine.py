@@ -55,6 +55,14 @@ the JAX engine's engine.py:1276), then a full-data Q pass.
     saves at the next epoch boundary and exits 143. No random state is
     saved: the plans and the pre-shuffle are redrawn from the seed. A
     resumed run equals the uninterrupted one, streamed or not.
+  * A profiler trace (``cfg.profile_dir``; the JAX package's
+    jax.profiler trace, engine.py:1348-1439): ``torch.profiler`` records
+    the epoch loop, the host and, on a card, its kernels and copies through
+    CUPTI, with one ``record_function`` span per epoch (``epoch N``), and
+    writes a Chrome trace (:func:`trace_path`; on a grid one file per rank)
+    when the loop ends, by an exception or SIGTERM's exit too. On a card
+    that it cannot trace it raises: a trace of the host alone is not
+    written in its place. The trace changes no number of the run.
   * The encoder init and the per-epoch batch plans come from CPU generators
     seeded from ``seed`` (utils/seeding.py), so a run on the card and a run
     on the CPU draw identical plans and initial weights. ``launch_training``
@@ -126,6 +134,9 @@ from ..utils.seeding import generator
 from .chunked import chunked_forward
 
 INFER_BATCH = 1024
+NO_CUPTI = ("--profile_dir: the profiler cannot trace the CUDA device (CUPTI "
+            "is not available to this PyTorch); a trace of the host alone "
+            "would hide the card's time")
 # The "format" entry of a checkpoint: the layout below (params_to_numpy's
 # names under "param/", Adam's state under "adam/").
 CKPT_FORMAT = "neural_admixture_tpu_torch/train_state/1"
@@ -165,11 +176,21 @@ class TrainConfig:
     # The grid (n_data, n_snp) of a run over several ranks: None = auto
     # over the ranks there are (NeuralAdmixtureTrainer._pick_mesh).
     mesh_shape: Optional[Tuple[int, int]] = None
+    # A torch.profiler trace of the epochs, written into this directory.
+    profile_dir: Optional[str] = None
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1 "
-                               f"item {item}.")
+def trace_path(profile_dir: str, rank: int) -> str:
+    """The first free name of a rank's trace in ``profile_dir``:
+    ``epochs_rank{rank}.json``, then ``_1``, ``_2``... for each later run
+    into the same directory (a fold, a restart, another command)."""
+    os.makedirs(profile_dir, exist_ok=True)
+    stem = os.path.join(profile_dir, f"epochs_rank{rank}")
+    path, n = f"{stem}.json", 0
+    while os.path.exists(path):
+        n += 1
+        path = f"{stem}_{n}.json"
+    return path
 
 
 def _ckpt_key(group: str, name: str) -> str:
@@ -341,6 +362,52 @@ def program_choices(blk: int, stream: bool = False, sharded: bool = False,
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class EpochTrace:
+    """A torch.profiler trace of one epoch loop on ``device``: the host, and
+    on a card its kernels and copies (CUPTI), with one ``epoch N`` span an
+    epoch; :meth:`close` stops it and writes it as a Chrome trace into
+    ``profile_dir``."""
+
+    def __init__(self, profile_dir: str, device: torch.device, rank: int):
+        from torch.profiler import (ProfilerActivity, profile,
+                                    supported_activities)
+        activities = [ProfilerActivity.CPU]
+        self.on_card = device.type == "cuda"
+        if self.on_card:
+            if ProfilerActivity.CUDA not in supported_activities():
+                raise RuntimeError(NO_CUPTI)
+            activities.append(ProfilerActivity.CUDA)
+        self.profile_dir, self.rank, self.span = profile_dir, rank, None
+        self.prof = profile(activities=activities)
+        self.prof.start()
+
+    def begin_epoch(self, epoch: int) -> None:
+        self.span = torch.profiler.record_function(f"epoch {epoch}")
+        self.span.__enter__()
+
+    def end_epoch(self) -> None:
+        if self.span is not None:
+            self.span.__exit__(None, None, None)
+            self.span = None
+
+    def close(self, ran: bool) -> str:
+        """Stop, write the trace (:func:`trace_path`) and return its path.
+        After epochs that ran on a card (``ran``), raise if the trace holds
+        none of the card's events."""
+        self.end_epoch()
+        self.prof.stop()
+        path = trace_path(self.profile_dir, self.rank)
+        self.prof.export_chrome_trace(path)
+        log.info(f"    Profiler trace of the epochs written to {path}.")
+        if ran and self.on_card:
+            from torch.autograd import DeviceType
+            if not any(e.device_type == DeviceType.CUDA
+                       for e in self.prof.events()):
+                raise RuntimeError(f"{NO_CUPTI} ({path} holds no event of "
+                                   "the card)")
+        return path
 
 
 class NeuralAdmixtureTrainer:
@@ -804,12 +871,19 @@ class NeuralAdmixtureTrainer:
             except ValueError:  # not the main thread
                 pass
 
+        # Per-run state: a trainer may run again (--init_restarts).
         self.logged_losses, self.epoch_seconds = {}, []
+        self.epoch_profiles = []
+        grid = self.grid
+        trace = (EpochTrace(cfg.profile_dir, device,
+                            grid.rank if grid is not None else 0)
+                 if cfg.profile_dir else None)
         _sync(device)
         t_train = t_epoch = time.perf_counter()
         loss_sum = None
-        grid = self.grid
         try:
+            if trace is not None:
+                trace.begin_epoch(start_epoch)
             with closing(steps):
                 for epoch, full, rows, xb, blk_idx in steps:
                     logged = epoch % log_every == 0
@@ -832,6 +906,8 @@ class NeuralAdmixtureTrainer:
                     _sync(device)
                     now = time.perf_counter()
                     self.epoch_seconds.append(now - t_epoch)
+                    if trace is not None:
+                        trace.end_epoch()
                     if grid is not None and grid.profile is not None:
                         self.epoch_profiles.append(grid.lap_profile())
                     if cfg.progress:
@@ -868,11 +944,22 @@ class NeuralAdmixtureTrainer:
                         # An epoch's profile holds its steps: the save's
                         # gathers and write are measured apart.
                         grid.start_profile()
+                    if trace is not None and epoch + 1 < cfg.epochs:
+                        trace.begin_epoch(epoch + 1)
                     t_epoch = time.perf_counter()
+        except BaseException:
+            # An exception, SIGTERM's exit 143 too, leaves no trace running
+            # and writes what it recorded.
+            if trace is not None:
+                trace.close(ran=False)
+                trace = None
+            raise
         finally:
             if installed:
                 signal.signal(signal.SIGTERM, prev_sigterm
                               if prev_sigterm is not None else signal.SIG_DFL)
+        if trace is not None:
+            trace.close(ran=start_epoch < cfg.epochs)
         if cfg.progress and start_epoch < cfg.epochs:
             print(file=sys.stderr)
         self.train_seconds = time.perf_counter() - t_train

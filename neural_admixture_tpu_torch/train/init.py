@@ -65,23 +65,35 @@ def project_pca(packed, V: np.ndarray, N: int, block_bytes: int = 1 << 30,
     return out
 
 
+def pca_coords(packed, V: np.ndarray, N: int, device=None, stream=None,
+               rows=None, grid=None) -> torch.Tensor:
+    """The (N, D) PCA coordinates (G/2) @ V^T of all N rows, which
+    :func:`init_p_unsupervised` clusters (the JAX package's pca_coords,
+    train/init.py:91-108). They depend on the packed rows and V only, never
+    on the seed, so several GMM seeds (``--init_restarts``) share one
+    projection. ``rows``, ``grid``: ``packed`` holds rows [start, end) of a
+    grid's data row; its coordinates are gathered over the data group."""
+    start, end = rows if rows is not None else (0, N)
+    x_pca = project_pca(packed, V, end - start, device=device, stream=stream,
+                        gather_threads=(grid.gather_threads
+                                        if grid is not None else None))
+    if grid is not None:
+        x_pca = torch.from_numpy(gather_ragged_rows(x_pca.cpu().numpy(),
+                                                    grid))
+    return x_pca
+
+
 def init_p_unsupervised(packed, V: np.ndarray, N: int, M: int,
                         ks: List[int], seed: int,
                         x_pca: Optional[torch.Tensor] = None, device=None,
                         stream=None, rows=None, grid=None) -> np.ndarray:
     """GMM-based P init: (sum(ks), M) float32, rows per K ascending.
-    ``x_pca``: precomputed :func:`project_pca` coordinates (of all N rows).
-    ``rows``, ``grid``: ``packed`` holds rows [start, end) of a grid's data
-    row (see the module docstring)."""
+    ``x_pca``: the :func:`pca_coords` of the rows (``packed`` is then not
+    read). ``rows``, ``grid``: ``packed`` holds rows [start, end) of a
+    grid's data row (see the module docstring)."""
     if x_pca is None:
-        start, end = rows if rows is not None else (0, N)
-        x_pca = project_pca(packed, V, end - start, device=device,
-                            stream=stream, gather_threads=(
-                                grid.gather_threads if grid is not None
-                                else None))
-        if grid is not None:
-            x_pca = torch.from_numpy(gather_ragged_rows(
-                x_pca.cpu().numpy(), grid))
+        x_pca = pca_coords(packed, V, N, device=device, stream=stream,
+                           rows=rows, grid=grid)
     X = x_pca.detach().to("cpu", torch.float32)
     Vh = torch.from_numpy(np.asarray(V, np.float32))  # (D, M)
     blocks = []

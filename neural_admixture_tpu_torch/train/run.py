@@ -5,7 +5,10 @@ PLINK BED, a PGEN or a VCF, one K (``--k``) or a K range (``--min_k`` ..
 ``--max_k``, one head per K, trained jointly), unsupervised or supervised
 (``--pops_path``, one K), with resumable checkpoints (``--checkpoint_every``,
 ``--resume``, SIGTERM) and host streaming (``--stream``), on one device or
-over a grid of ranks. Resident, the packed rows go to the device once for
+over a grid of ranks, with K-fold cross-validation (``--cv``, one process;
+train/cv.py), independently seeded restarts (``--init_restarts``, the best
+kept by log-likelihood) and a profiler trace of the epochs
+(``--profile_dir``). Resident, the packed rows go to the device once for
 the RSVD and the P init and once more for training;
 streamed (``--stream 1``, or ``auto`` when they do not fit), no phase
 uploads the whole packed matrix: the RSVD, the PCA projection or the
@@ -21,14 +24,16 @@ and the P init run on the data row's rows with their sketch, coordinates or
 sums joined over the data group (streamed when the rank's own estimate
 says so), training runs sharded, streamed or resident, with checkpoints
 that every rank joins (train/engine.py), the log-likelihood is the sum of
-each rank's part (its rows, its SNP block), and rank 0 alone writes. The
-checkpoint lives in ``--save_dir``, which every host must see. Everything
-outside the slice raises NotImplementedError naming the ROADMAP.md item
-that ports it.
+each rank's part (its rows, its SNP block), so every rank keeps the same
+restart, and rank 0 alone writes. The checkpoint lives in ``--save_dir``,
+which every host must see. A grid refuses ``--cv``, as the JAX package
+refuses it across processes.
 """
 import logging
+import os
 import time
 from pathlib import Path
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,11 +49,13 @@ from ..parallel.distributed import is_master, spawn_grid
 from ..parallel.grid import DATA_AXIS, SNP_AXIS
 from ..utils.hbm import should_stream_host
 from ..utils.logger import log, setup_logging
-from .engine import NeuralAdmixtureTrainer, TrainConfig, not_ported
+from .cv import run_cross_validation
+from .engine import NeuralAdmixtureTrainer, TrainConfig
 from .init import (encode_populations, init_p_supervised_packed,
-                   init_p_unsupervised)
+                   init_p_unsupervised, pca_coords)
 
-ITEM_13 = "13 (CV, restarts and the bench)"
+# The JAX package's refusal of --cv across processes (train/run.py:213-215).
+CV_ONE_PROCESS = "--cv runs single-process (each fold re-slices sample rows)."
 
 # --stream as the JAX package's train/run.py normalises it: YAML configs
 # bypass argparse's choices and may give ints or bools.
@@ -57,18 +64,11 @@ STREAM_MAP = {"auto": None, None: None, "0": False, 0: False, False: False,
 
 
 def check_ported(args) -> None:
-    """Raise on every option outside the ported slice, and on a --stream
-    value outside auto/0/1 as the JAX package does."""
+    """Raise on a --stream value outside auto/0/1, as the JAX package
+    does."""
     stream = getattr(args, "stream", "auto")
     if stream not in STREAM_MAP:
         raise ValueError(f"--stream must be auto, 0, or 1; got {stream!r}")
-    if args.cv:
-        raise not_ported("--cv", ITEM_13)
-    if int(args.init_restarts or 1) > 1:
-        raise not_ported("--init_restarts > 1", ITEM_13)
-    if args.profile_dir:
-        raise not_ported("--profile_dir (a profiler trace of the epochs)",
-                         ITEM_13)
 
 
 def _resolve_mesh_shape(args, hosts=None):
@@ -111,7 +111,8 @@ def _train_config(args, ks, stream, device: str, **kw) -> TrainConfig:
         sample_block=int(args.sample_block or 1), device=device,
         stream=stream, checkpoint_every=int(args.checkpoint_every or 0),
         checkpoint_path=str(Path(args.save_dir) / f"{args.name}_ckpt.npz"),
-        resume=bool(args.resume), **kw)
+        resume=bool(args.resume), profile_dir=args.profile_dir or None,
+        **kw)
 
 
 def _setup_stream(stream, n: int, W: int, args, device) -> bool:
@@ -159,6 +160,49 @@ def _log_lls(lls, ks, K) -> None:
         log.info(f"    Log-likelihood{suffix}: {ll:2f}.")
 
 
+def fit_restarts(trainer: NeuralAdmixtureTrainer, packed: np.ndarray,
+                 V: np.ndarray, M: int, N: int, ks, restarts: int, seed: int,
+                 lls_of: Callable, P_init: Optional[np.ndarray] = None,
+                 x_pca: Optional[torch.Tensor] = None,
+                 pops: Optional[np.ndarray] = None, host_rows=None
+                 ) -> Tuple[int, List, List, Dict, List[float]]:
+    """Train ``restarts`` independently seeded runs and keep the one with
+    the largest sum of per-K log-likelihoods, the first on a tie (the JAX
+    package's train/run.py:217-283). Run r draws its GMM init from ``seed +
+    r`` (unsupervised, on the PCA coordinates ``x_pca``; supervised runs
+    share ``P_init``) and so does the trainer (encoder init, pre-shuffle,
+    plans); V is the caller's. With more than one run each checkpoints to
+    its own file, ``_r{r}`` before ``.npz``, and resumes from it.
+    ``lls_of(Qs, Ps)``: a run's per-K log-likelihoods (on a grid summed over
+    the ranks, so that every rank keeps the same run). The trainer runs
+    each; only the best run's numpy results are kept. Returns (r, Qs, Ps,
+    params, lls) of the best."""
+    cfg = trainer.cfg
+    base_ckpt = cfg.checkpoint_path
+    best = None
+    try:
+        for r in range(restarts):
+            seed_r = seed + r
+            if restarts > 1:
+                log.info(f"    Restart {r + 1}/{restarts} (seed {seed_r})...")
+                if base_ckpt:
+                    cfg.checkpoint_path = (os.path.splitext(base_ckpt)[0]
+                                           + f"_r{r}.npz")
+            if pops is None:
+                P_init = init_p_unsupervised(None, V, N, M, ks, seed_r,
+                                             x_pca=x_pca)
+            cfg.seed = seed_r
+            Qs, Ps, params = trainer.launch_training(
+                P_init, packed, V, M, N, pops=pops, host_rows=host_rows)
+            lls = lls_of(Qs, Ps)
+            if best is None or sum(lls) > sum(best[4]):
+                best = (r, Qs, Ps, params, lls)
+            del Qs, Ps, params
+    finally:
+        cfg.seed, cfg.checkpoint_path = seed, base_ckpt
+    return best
+
+
 def _train_grid(args, t0: float, hosts) -> int:
     """Start this host's ranks of the grid (each runs :func:`_train_rank`)."""
     ks = _ks(args)[3]
@@ -182,10 +226,12 @@ def _train_grid(args, t0: float, hosts) -> int:
     return 0
 
 
-def _train_rank(grid, args, stream, N: int, M: int, t0: float) -> None:
+def _train_rank(grid, args, stream, N: int, M: int, t0: float
+                ) -> Tuple[int, List[float]]:
     """One rank of a grid's ``train``: this data row's rows, the set-up
-    joined over the data group, sharded training, the log-likelihood summed
-    over the grid; rank 0 writes."""
+    joined over the data group, sharded training (each restart), the
+    log-likelihood summed over the grid; rank 0 writes. Returns the kept
+    restart and its log-likelihoods."""
     K, _, _, ks = _ks(args)
     trainer = NeuralAdmixtureTrainer(_train_config(
         args, ks, stream, str(grid.device), mesh_shape=grid.shape,
@@ -213,6 +259,7 @@ def _train_rank(grid, args, stream, N: int, M: int, t0: float) -> None:
              device=device, stream=setup_stream, rows=rows, grid=grid)
     log.info(f"    Total time SVD: {time.time() - t_svd:.4f}s")
     log.info("")
+    P_init = x_pca = None
     if y_num is not None:
         log.info("")
         log.info("    Running Supervised Mode...")
@@ -224,33 +271,40 @@ def _train_rank(grid, args, stream, N: int, M: int, t0: float) -> None:
         log.info("")
         log.info("    Running Gaussian Mixture in PCA subspace...")
         log.info("")
-        P_init = init_p_unsupervised(local, V, N, M, ks, int(args.seed),
-                                     device=device, stream=setup_stream,
-                                     rows=rows, grid=grid)
+        x_pca = pca_coords(local, V, N, device=device, stream=setup_stream,
+                           rows=rows, grid=grid)
     del local
 
-    Qs, Ps, params = trainer.launch_training(P_init, packed, V, M, N,
-                                             pops=y_num, host_rows=rows)
     # Each rank's part of the log-likelihood: its rows, its SNP block.
     w_loc = packed.shape[1] // grid.n_snp
     c0 = grid.s * 4 * w_loc
     m_cols = max(0, min(M - c0, 4 * w_loc))
     block = np.ascontiguousarray(
         packed[:, grid.s * w_loc:(grid.s + 1) * w_loc])
-    parts = torch.tensor([
-        loglikelihood_packed(block, m_cols,
-                             P[c0:c0 + m_cols].astype(np.float64),
-                             Q[start:end].astype(np.float64), device=device)
-        if m_cols and end > start else 0.0
-        for Q, P in zip(Qs, Ps)], dtype=torch.float64,
-        device=grid.comm_device)
-    lls = grid.psum_(parts, (DATA_AXIS, SNP_AXIS), "loglikelihood").tolist()
+
+    def lls_of(Qs, Ps):
+        parts = torch.tensor([
+            loglikelihood_packed(block, m_cols,
+                                 P[c0:c0 + m_cols].astype(np.float64),
+                                 Q[start:end].astype(np.float64),
+                                 device=device)
+            if m_cols and end > start else 0.0
+            for Q, P in zip(Qs, Ps)], dtype=torch.float64,
+            device=grid.comm_device)
+        return grid.psum_(parts, (DATA_AXIS, SNP_AXIS),
+                          "loglikelihood").tolist()
+
+    r, Qs, Ps, params, lls = fit_restarts(
+        trainer, packed, V, M, N, ks, int(args.init_restarts or 1),
+        int(args.seed), lls_of, P_init=P_init, x_pca=x_pca, pops=y_num,
+        host_rows=rows)
     _log_lls(lls, ks, K)
     if is_master():
         _save(args, params, Qs, Ps, ks, M, V.shape[0])
         log.info("")
         log.info(f"    Total elapsed time: {time.time() - t0:.2f} seconds.")
         log.info("")
+    return r, lls
 
 
 def main_train(args, t0: float, hosts=None) -> int:
@@ -259,6 +313,8 @@ def main_train(args, t0: float, hosts=None) -> int:
     K, _, _, ks = _ks(args)
     shape = _resolve_mesh_shape(args, hosts)
     if (shape is None and hosts) or (shape and shape[0] * shape[1] > 1):
+        if args.cv:
+            raise ValueError(CV_ONE_PROCESS)
         return _train_grid(args, t0, hosts)
     device = select_device(int(args.num_gpus), "training")
     stream = STREAM_MAP[getattr(args, "stream", "auto")]
@@ -280,6 +336,7 @@ def main_train(args, t0: float, hosts=None) -> int:
              device=device, stream=setup_stream)
     log.info(f"    Total time SVD: {time.time() - t_svd:.4f}s")
     log.info("")
+    P_init = x_pca = None
     if y_num is not None:
         log.info("")
         log.info("    Running Supervised Mode...")
@@ -290,19 +347,25 @@ def main_train(args, t0: float, hosts=None) -> int:
         log.info("")
         log.info("    Running Gaussian Mixture in PCA subspace...")
         log.info("")
-        P_init = init_p_unsupervised(rows, V, N, M, ks, int(args.seed),
-                                     device=device, stream=setup_stream)
+        # One projection, whatever the number of restarts.
+        x_pca = pca_coords(rows, V, N, device=device, stream=setup_stream)
     del rows
 
     _make_save_dir(args)
-    trainer = NeuralAdmixtureTrainer(_train_config(
-        args, ks, stream, str(device), progress=not args.no_progress))
-    Qs, Ps, params = trainer.launch_training(P_init, packed, V, M, N,
-                                             pops=y_num)
-
-    _log_lls([loglikelihood_packed(packed, M, P.astype(np.float64),
-                                   Q.astype(np.float64), device=device)
-              for Q, P in zip(Qs, Ps)], ks, K)
+    cfg = _train_config(args, ks, stream, str(device),
+                        progress=not args.no_progress)
+    if args.cv:
+        Path(args.save_dir).mkdir(parents=True, exist_ok=True)
+        run_cross_validation(packed, N, M, ks, int(args.cv), int(args.seed),
+                             cfg, args.name, args.save_dir, pops=y_num)
+    _, Qs, Ps, params, lls = fit_restarts(
+        NeuralAdmixtureTrainer(cfg), packed, V, M, N, ks,
+        int(args.init_restarts or 1), int(args.seed),
+        lambda Qs, Ps: [loglikelihood_packed(
+            packed, M, P.astype(np.float64), Q.astype(np.float64),
+            device=device) for Q, P in zip(Qs, Ps)],
+        P_init=P_init, x_pca=x_pca, pops=y_num)
+    _log_lls(lls, ks, K)
     _save(args, params, Qs, Ps, ks, M, V.shape[0])
 
     log.info("")

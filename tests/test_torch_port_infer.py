@@ -25,6 +25,7 @@ from neural_admixture_tpu.models import qp as jqp
 from neural_admixture_tpu_torch import entry as tentry
 from neural_admixture_tpu_torch.infer import infer_q
 from neural_admixture_tpu_torch.models.qp import QPEncoder, params_from_numpy
+from neural_admixture_tpu_torch.train.engine import NeuralAdmixtureTrainer
 from tests.conftest import DEMO_BED
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -157,10 +158,19 @@ def test_infer_q_never_falls_back_to_cpu(monkeypatch):
         tentry.main(_infer_argv("unused", "m", "o"))
 
 
+class _ReachedTraining(Exception):
+    pass
+
+
+def _reached_training(trainer, *args, **kwargs):
+    raise _ReachedTraining(f"training with seed {trainer.cfg.seed}")
+
+
 @pytest.mark.parametrize("argv,cards,exc,match", [
-    (["train", "--k", "3", "--save_dir", "s", "--data_path", "d.bed",
-      "--name", "m", "--init_restarts", "2"], None, NotImplementedError,
-     "item 13"),
+    # Restarts run: the first reaches training with --seed.
+    (["train", "--k", "3", "--save_dir", "s", "--data_path", DEMO_BED,
+      "--name", "m", "--init_restarts", "2", "--num_gpus", "0"], None,
+     _ReachedTraining, "training with seed 42"),
     # Several cards on a host without one: no CUDA device, no CPU run.
     (["infer", "--num_gpus", "2"], None, RuntimeError,
      "--num_gpus 2 asks for CUDA devices, but no CUDA device"),
@@ -169,6 +179,8 @@ def test_infer_q_never_falls_back_to_cpu(monkeypatch):
      "--num_gpus 1 asks for a CUDA device, but no CUDA device"),
 ])
 def test_unported_paths_raise(monkeypatch, argv, cards, exc, match):
+    monkeypatch.setattr(NeuralAdmixtureTrainer, "launch_training",
+                        _reached_training)
     if cards is not None:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -401,24 +401,37 @@ def test_cli_train_on_card_without_cuda_exits_nonzero(tmp_path):
     assert not list(tmp_path.iterdir())
 
 
+class _PastTheStreamCheck(Exception):
+    pass
+
+
+def _past_the_checks(trainer, *args, **kwargs):
+    raise _PastTheStreamCheck(f"training with profile_dir "
+                              f"{trainer.cfg.profile_dir}")
+
+
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--cv", "3"], NotImplementedError, "item 13"),
-    (["--init_restarts", "2"], NotImplementedError, "item 13"),
-    (["--profile_dir", "t"], NotImplementedError, "item 13"),
+    # The JAX package's checks (entry.py:295-298).
+    (["--cv", "1"], ValueError, "folds must be >= 2"),
+    (["--init_restarts", "0"], ValueError, "init_restarts must be >= 1"),
+    # The trace reaches training.
+    (["--profile_dir", "t"], _PastTheStreamCheck,
+     "training with profile_dir t"),
     # Several cards on a host without one: no CUDA device, no CPU run.
     (["--num_gpus", "2"], RuntimeError, "no CUDA device"),
-    # On a grid as on one device.
-    (["--mesh", "2x1", "--cv", "3"], NotImplementedError, "item 13"),
+    # A grid refuses --cv, as the JAX package across processes.
+    (["--mesh", "2x1", "--cv", "3"], ValueError,
+     "--cv runs single-process"),
 ])
-def test_unported_train_options_raise(tmp_path, extra, exc, match):
+def test_unported_train_options_raise(monkeypatch, tmp_path, extra, exc,
+                                      match):
+    monkeypatch.setattr(NeuralAdmixtureTrainer, "launch_training",
+                        _past_the_checks)
     argv = ["train", "--data_path", DEMO_BED, "--save_dir", str(tmp_path),
             "--name", "m", "--num_gpus", "0", "--k", "3"]
     with pytest.raises(exc, match=match):
         tentry.main(argv + extra)
-
-
-class _PastTheStreamCheck(Exception):
-    pass
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("stream,verdict", [
