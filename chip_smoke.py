@@ -11,9 +11,18 @@ non-zero exit and no result line:
   2. build: compiles the kernels (nvcc, one process per source, in
      parallel), prints build seconds and each instance's ptxas registers
      and spills;
+  2b. tsan: the native host decoder (native/bed_decode.cpp) under
+     ThreadSanitizer on the card's host, as ``python -m
+     neural_admixture_tpu_torch.native.tsan`` runs it (g++ -fsanitize=thread,
+     native/tsan_test.cpp): its canary race reported, every threaded entry
+     point on two or more threads, results checked, no report; its seconds;
   3. kernel vs plain: xv, dq_dp, loss_dq_dp, dv and bce_sum against their
-     plain versions at small ragged shapes (bce_sum's term alone against
-     float64 on 2^24 (r, code) pairs, and bce_sum also on adversarial
+     plain versions at small ragged shapes that together reach every
+     template instance of csrc/*.cu (XV_CASES, DQ_DP_CASES, DV_CASES,
+     BCE_SUM_CASES, INDEXED_CASES; K5 past one launch at D > 8 with its
+     16-byte loads on and off, also on rows 4 bytes past an aligned
+     address; bce_sum's term alone against float64 on 2^24 (r, code)
+     pairs, and bce_sum also on adversarial
      planes: r in [1e-9, 1e-3] at x = 0, r exactly 0 and 1 at every code,
      r within 2^-20 of 1 at code 2; xv also on a V with a 1000-fold
      spike in every 512-SNP chunk, dv on a dXp with a 1000-fold spike in
@@ -453,14 +462,26 @@ def bce_plane(rng, kind, B, M, k, missing):
     return (G.astype(np.uint8), q.astype(np.float32), P.astype(np.float32))
 
 
-def check_indexed(dev, rng, n_rows, blk, nbk, m, k, D, missing, masked):
+def on_card(packed, dev, offset=0):
+    """The uint8 array ``packed`` on the card, starting ``offset`` bytes past
+    the start of its allocation (4: rows aligned to 4 bytes but not to 16,
+    which turns off the kernels' 16-byte loads)."""
+    buf = torch.empty(packed.size + offset, dtype=torch.uint8, device=dev)
+    out = buf[offset:].view(packed.shape)
+    out.copy_(torch.from_numpy(packed))
+    return out
+
+
+def check_indexed(dev, rng, n_rows, blk, nbk, m, k, D, missing, masked,
+                  offset=0):
     """Every kernel on an indexed batch (``nbk`` shuffled blocks of ``blk``
-    rows of ``n_rows`` resident rows): against its plain version, and bit
-    for bit against the same kernel on the gathered batch. Returns the
-    largest |d| against the plain versions."""
+    rows of ``n_rows`` resident rows, ``offset`` bytes into their
+    allocation): against its plain version, and bit for bit against the
+    same kernel on the gathered batch. Returns the largest |d| against the
+    plain versions."""
     no_missing = not missing
-    resident = torch.from_numpy(random_packed(rng, n_rows, m, m, missing)
-                                ).to(dev)
+    resident = on_card(random_packed(rng, n_rows, m, m, missing), dev,
+                       offset)
     ix = {"blk_idx": torch.from_numpy(rng.permutation(n_rows // blk)[:nbk]
                                       .astype(np.int32)).to(dev),
           "blk": blk}
@@ -571,6 +592,26 @@ def phase_build():
     return logs
 
 
+def phase_tsan():
+    """The native host decoder under ThreadSanitizer on the card's host:
+    ``python -m neural_admixture_tpu_torch.native.tsan`` in its own process,
+    as a user runs it (the canary reported, every threaded entry point on
+    two or more threads, no report)."""
+    t = phase("2b. native host decoder under ThreadSanitizer")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "neural_admixture_tpu_torch.native.tsan"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    for line in res.stdout.splitlines():
+        print(f"   {line}")
+    if res.returncode != 0:
+        raise RuntimeError(f"the ThreadSanitizer runner failed (exit "
+                           f"{res.returncode}):\n{res.stderr[-4000:]}")
+    print(f"   tsan runner: exit 0 in {time.perf_counter() - t0:.1f} s on "
+          f"{os.cpu_count()} cores")
+    done(t)
+
+
 def check_division(dev, n=1 << 24):
     """dq_dp's branch-free division of the elementwise step bit for bit
     against '/' (IEEE, div.rn.f32) on n pairs from its domain: a = rec - x,
@@ -670,6 +711,121 @@ def check_bce_term(dev, n=1 << 24):
     return (d / e64.abs().clamp_min(1e-300)).max().item()
 
 
+# Phase 3's cases. Together they reach every template instance that the
+# dispatchers of csrc/*.cu can reach, and every tile edge of each kernel
+# (tests/test_torch_port_race.py maps them through the dispatch rules):
+# K2 NT (D <= 8, 16, 32) x NO_MISSING x INDEXED, 12 instances; K3/K4 KT
+# (k <= 4, 8, 16) x MASKED x NO_MISSING x WITH_LOSS x INDEXED, 48; K5
+# NO_MISSING x INDEXED, 4, each over one launch's rows with D > 8 and with
+# vec16 on (W4 % 4 == 0, 16-byte aligned rows) and off (W4 % 4 != 0, or
+# rows 4 bytes past an aligned address); K6 KS (k <= 8, 16) x MASKED x
+# NO_MISSING, 8, gathered and indexed. ``offset``: the packed rows start
+# that many bytes past an aligned allocation (on_card).
+
+# xv (B, M, D, missing in data, no_missing flag, spike, offset): B not a
+# multiple of the 16-row tile, M not a multiple of the 512-SNP chunk (and
+# M / 4 not of 16 bytes: the kernel's word-by-word loads), D from 1 to 32
+# (n-tiles 1, 2, 4), with and without code 3; 1100 rows at D = 8, 520 at
+# D = 12 and 300 at D = 32 take two launches by rows; spike: V with one
+# entry of every 512-SNP chunk 1000 times the rest (spike_v).
+XV_CASES = [(37, 4000, 4, True, False, False, 0),
+            (37, 4000, 4, False, True, False, 0),
+            (130, 16400, 8, True, False, False, 0),
+            (130, 16400, 8, False, True, False, 0),
+            (130, 16400, 8, False, False, False, 0),
+            (65, 6160, 5, True, False, False, 0),
+            (9, 8192, 16, True, False, False, 0),
+            (70, 8192, 32, False, True, False, 0),
+            (1, 2048, 8, True, False, False, 0),
+            (17, 6160, 1, True, False, False, 0),
+            (800, 8192, 1, False, True, False, 0),
+            (1100, 4112, 8, True, False, False, 0),
+            (300, 2064, 32, True, False, False, 0),
+            (130, 16400, 8, True, False, True, 0),
+            (800, 8192, 8, False, True, True, 0),
+            (130, 16384, 8, True, False, False, 0),
+            (15, 4000, 1, True, False, True, 0),
+            (520, 2064, 12, False, True, False, 0),
+            (130, 16384, 8, True, False, False, 4)]
+# dq_dp and loss_dq_dp (B, m_pad, k, missing in data, no_missing, g): B
+# ragged against the 16-row groups of the mma tiles and the 8 warps (1, 15,
+# 17, 600), m_pad not a multiple of the 128-SNP tile, k in {2, 7, 8, 9, 16}
+# (templates 4, 8, 16); each case masked and unmasked, with and without the
+# loss, and K3 at g = 1 bit for bit against K4's dq and dP. (900, 16) and
+# (1700, 8): more rows than one launch of the k = 16 and k = 8 instances
+# stages (816, 1536), so a second launch adds into dP and the loss.
+DQ_DP_CASES = [(1, 2064, 2, True, False, 1.0), (9, 4112, 7, True, False, 2.5),
+               (37, 6160, 8, False, True, 1.0),
+               (96, 8208, 8, True, False, 2.5),
+               (130, 4144, 16, False, False, 1.0),
+               (37, 4112, 16, True, False, 2.5),
+               (600, 2064, 16, True, False, 2.5),
+               (1, 2080, 16, False, True, 1.0),
+               (15, 2064, 9, True, False, 2.5),
+               (17, 4144, 2, False, True, 1.0),
+               (15, 2080, 16, False, False, 2.5),
+               (17, 2064, 9, False, True, 1.0),
+               (600, 4112, 2, True, False, 1.0),
+               (600, 2080, 9, False, True, 2.5),
+               (900, 2064, 16, True, False, 2.5),
+               (1700, 2064, 8, False, True, 1.0)]
+# dv (B, m_pad, D, missing in data, no_missing, spike, offset): B not a
+# multiple of the 32-row k-step (1, 9, 33, 37, 130, 300) and over one
+# 256-row scale chunk, m_pad not a multiple of the 512-SNP tile (and
+# m_pad / 16 not of 4 words: the kernel's 4-byte copies), D from 1 to 32
+# (one launch per 8 columns), with and without code 3; DV_SPLIT rows, more
+# than one launch takes (na_dv_rows_per_launch, 2048), at D = 8 and 5, and
+# at D = 9 to 16 with vec16 on, off by W4 and off by the offset; spike:
+# spike_dv_case.
+DV_SPLIT = 2100
+DV_CASES = [(1, 2064, 4, True, False, False, 0),
+            (9, 4112, 5, True, False, False, 0),
+            (37, 6160, 8, False, True, False, 0),
+            (96, 8208, 8, True, False, False, 0),
+            (130, 4144, 16, False, False, False, 0),
+            (37, 4112, 32, True, False, False, 0),
+            (300, 2064, 32, True, False, False, 0),
+            (33, 2064, 1, True, False, False, 0),
+            (800, 8192, 1, False, True, False, 0),
+            (DV_SPLIT, 2064, 8, True, False, False, 0),
+            (DV_SPLIT, 4096, 5, False, True, False, 0),
+            (800, 8192, 8, True, False, True, 0),
+            (800, 8208, 8, False, True, True, 0),
+            (300, 4112, 1, True, False, True, 0),
+            (DV_SPLIT, 2112, 12, True, False, False, 0),
+            (DV_SPLIT, 2064, 13, True, False, False, 0),
+            (DV_SPLIT, 2112, 12, True, False, False, 4),
+            (DV_SPLIT, 2112, 9, False, True, False, 0),
+            (DV_SPLIT, 2064, 16, False, True, False, 0),
+            (DV_SPLIT, 2112, 10, False, True, False, 4)]
+# bce_sum (B, m_pad, k): k in {1, 7, 16} (both instances, KS = 1 and 2),
+# each with and without code 3 in the data (no_missing set when there is
+# none), masked and unmasked, on the random planes of q and P above and on
+# the adversarial planes of bce_plane; (900, 16) and (1700, 7) stage their
+# rows in two passes.
+BCE_SUM_CASES = [(9, 4112, 1), (96, 8208, 7), (600, 2064, 16),
+                 (900, 2064, 16), (1700, 2064, 7)]
+# indexed forms (n_rows resident, blk, blocks, m_pad, k, D, missing,
+# masked, offset): blocks of 1 and of 16 rows over resident arrays larger
+# than the batch, in shuffled order; the last six take dv past one launch
+# at D > 8 with vec16 on, off by W4 and off by the offset, without and
+# with code 3, and reach the indexed instances that the others miss.
+INDEXED_CASES = [(300, 1, 37, 4112, 7, 8, True, True, 0),
+                 (300, 1, 130, 2064, 16, 32, False, False, 0),
+                 (640, 16, 5, 6160, 8, 8, True, False, 0),
+                 (640, 16, 38, 2064, 16, 5, False, True, 0),
+                 (300, 1, 15, 2080, 2, 4, False, True, 0),
+                 (1000, 1, 17, 2064, 9, 8, True, True, 0),
+                 (1000, 1, 900, 2064, 16, 8, True, False, 0),
+                 (2200, 1, 2100, 2064, 8, 8, True, False, 0),
+                 (2200, 1, 2100, 2112, 3, 12, True, True, 0),
+                 (2200, 1, 2100, 2064, 4, 16, False, False, 0),
+                 (2200, 1, 2100, 2112, 2, 24, True, False, 4),
+                 (2200, 1, 2100, 2112, 6, 13, False, True, 4),
+                 (2200, 1, 2100, 2112, 8, 9, False, False, 0),
+                 (2200, 1, 2100, 2064, 5, 10, True, True, 0)]
+
+
 def phase_kernels(dev):
     """Every kernel against its plain version at small ragged shapes."""
     t = phase("3. kernels vs their plain versions")
@@ -681,59 +837,15 @@ def phase_kernels(dev):
           f"{rel:.2e} of the float64 BCE (rule 1e-6), no NaN, bit-equal to "
           "bce_elem where a clamp decides it")
     rng = np.random.default_rng(SEED)
-    # xv (B, M, D, missing in data, no_missing flag, spike): B not a
-    # multiple of the 16-row tile, M not a multiple of the 512-SNP chunk
-    # (and M / 4 not of 16 bytes: the kernel's word-by-word loads), D from
-    # 1 to 32 (n-tiles 1, 2, 4), with and without code 3; 1100 rows at
-    # D = 8 and 300 at D = 32 take two launches by rows; spike: V with one
-    # entry of every 512-SNP chunk 1000 times the rest (spike_v).
-    cases = [(37, 4000, 4, True, False, False),
-             (37, 4000, 4, False, True, False),
-             (130, 16400, 8, True, False, False),
-             (130, 16400, 8, False, True, False),
-             (130, 16400, 8, False, False, False),
-             (65, 6160, 5, True, False, False),
-             (9, 8192, 16, True, False, False),
-             (70, 8192, 32, False, True, False),
-             (1, 2048, 8, True, False, False),
-             (17, 6160, 1, True, False, False),
-             (800, 8192, 1, False, True, False),
-             (1100, 4112, 8, True, False, False),
-             (300, 2064, 32, True, False, False),
-             (130, 16400, 8, True, False, True),
-             (800, 8192, 8, False, True, True),
-             (130, 16384, 8, True, False, False),
-             (15, 4000, 1, True, False, True)]
-    for B, M, D, missing, no_missing, spike in cases:
-        packed = torch.from_numpy(random_packed(rng, B, M, M, missing)).to(dev)
+    for B, M, D, missing, no_missing, spike, offset in XV_CASES:
+        packed = on_card(random_packed(rng, B, M, M, missing), dev, offset)
         V = torch.from_numpy(spike_v(rng, M, D) if spike else rng.normal(
             size=(M, D)).astype(np.float32)).to(dev)
         a, r = check_xv(packed, V, no_missing)
         print(f"   xv B={B} M={M} D={D} missing={missing} "
-              f"no_missing={no_missing} spike={spike}: max|d| {a:.3e}, "
-              f"max|d|/sum|x||V| {r:.3e}")
-    # dq_dp and loss_dq_dp (B, m_pad, k, missing in data, no_missing, g):
-    # B ragged against the 16-row groups of the mma tiles and the 8 warps
-    # (1, 15, 17, 600), m_pad not a multiple of the 128-SNP tile, k in
-    # {2, 7, 8, 9, 16} (templates 4, 8, 16); each case masked and unmasked,
-    # with and without the loss, and K3 at g = 1 bit for bit against K4's
-    # dq and dP. (900, 16) and (1700, 8): more rows than one launch of the
-    # k = 16 and k = 8 instances stages (816, 1536), so a second launch adds
-    # into dP and the loss.
-    cases = [(1, 2064, 2, True, False, 1.0), (9, 4112, 7, True, False, 2.5),
-             (37, 6160, 8, False, True, 1.0), (96, 8208, 8, True, False, 2.5),
-             (130, 4144, 16, False, False, 1.0), (37, 4112, 16, True, False,
-                                                   2.5),
-             (600, 2064, 16, True, False, 2.5), (1, 2080, 16, False, True,
-                                                 1.0),
-             (15, 2064, 9, True, False, 2.5), (17, 4144, 2, False, True, 1.0),
-             (15, 2080, 16, False, False, 2.5), (17, 2064, 9, False, True,
-                                                 1.0),
-             (600, 4112, 2, True, False, 1.0), (600, 2080, 9, False, True,
-                                                2.5),
-             (900, 2064, 16, True, False, 2.5), (1700, 2064, 8, False, True,
-                                                 1.0)]
-    for B, m, k, missing, no_missing, g in cases:
+              f"no_missing={no_missing} spike={spike} offset={offset}: "
+              f"max|d| {a:.3e}, max|d|/sum|x||V| {r:.3e}")
+    for B, m, k, missing, no_missing, g in DQ_DP_CASES:
         packed = torch.from_numpy(random_packed(rng, B, m, m, missing)).to(dev)
         q = torch.from_numpy(_q_rows(rng, B, k)).to(dev)
         P = torch.from_numpy(_relative_p(rng, k, m)).to(dev)
@@ -756,46 +868,21 @@ def phase_kernels(dev):
                                      f"k={k}, masked={masked})")
         print(f"   B={B} k={k}: K3 at g = 1 bit-equal to K4's dq and dP, "
               "masked and unmasked")
-    # dv (B, m_pad, D, missing in data, no_missing, spike): B not a
-    # multiple of the 32-row k-step (1, 9, 33, 37, 130, 300) and over one
-    # 256-row scale chunk, m_pad not a multiple of the 512-SNP tile (and
-    # m_pad / 16 not of 4 words: the kernel's 4-byte copies), D from 1 to
-    # 32 (one launch per 8 columns), with and without code 3; a batch of
-    # more rows than one launch takes (na_dv_rows_per_launch, 2048) at
-    # D = 8 and D = 5; spike: spike_dv_case.
-    split = dv_ops.rows_per_launch() + 52
-    cases = [(1, 2064, 4, True, False, False),
-             (9, 4112, 5, True, False, False),
-             (37, 6160, 8, False, True, False),
-             (96, 8208, 8, True, False, False),
-             (130, 4144, 16, False, False, False),
-             (37, 4112, 32, True, False, False),
-             (300, 2064, 32, True, False, False),
-             (33, 2064, 1, True, False, False),
-             (800, 8192, 1, False, True, False),
-             (split, 2064, 8, True, False, False),
-             (split, 4096, 5, False, True, False),
-             (800, 8192, 8, True, False, True),
-             (800, 8208, 8, False, True, True),
-             (300, 4112, 1, True, False, True)]
-    for B, m, D, missing, no_missing, spike in cases:
+    if DV_SPLIT <= dv_ops.rows_per_launch():
+        raise AssertionError(f"DV_SPLIT ({DV_SPLIT}) no longer passes one "
+                             f"launch of dv ({dv_ops.rows_per_launch()} rows)")
+    for B, m, D, missing, no_missing, spike, offset in DV_CASES:
         if spike:
             packed, dXp = spike_dv_case(rng, B, m, D, missing)
         else:
             packed = random_packed(rng, B, m, m, missing)
             dXp = rng.normal(size=(B, D)).astype(np.float32)
-        a, r = check_dv(torch.from_numpy(packed).to(dev),
+        a, r = check_dv(on_card(packed, dev, offset),
                         torch.from_numpy(dXp).to(dev), no_missing)
         print(f"   dv B={B} m_pad={m} D={D} missing={missing} "
-              f"no_missing={no_missing} spike={spike}: max|d| {a:.3e}, "
-              f"max|d|/sum|x||dXp| {r:.3e}")
-    # bce_sum (B, m_pad, k): k in {1, 7, 16} (both instances, KS = 1 and
-    # 2), each with and without code 3 in the data (no_missing set when
-    # there is none), masked and unmasked, on the random planes of q and P
-    # above and on the adversarial planes of bce_plane; (900, 16) and
-    # (1700, 7) stage their rows in two passes
-    for B, m, k in [(9, 4112, 1), (96, 8208, 7), (600, 2064, 16),
-                    (900, 2064, 16), (1700, 2064, 7)]:
+              f"no_missing={no_missing} spike={spike} offset={offset}: "
+              f"max|d| {a:.3e}, max|d|/sum|x||dXp| {r:.3e}")
+    for B, m, k in BCE_SUM_CASES:
         for plane in BCE_PLANES:
             for missing in (True, False):
                 if plane == "random":
@@ -816,21 +903,12 @@ def phase_kernels(dev):
                     print(f"   bce_sum {plane} B={B} m_pad={m} k={k} "
                           f"missing={missing} no_missing={not missing} "
                           f"masked={masked}: |d| {e:.3e}")
-    # indexed forms (n_rows resident, blk, blocks, m_pad, k, D, missing,
-    # masked): blocks of 1 and of 16 rows over resident arrays larger than
-    # the batch, in shuffled order
-    for case in [(300, 1, 37, 4112, 7, 8, True, True),
-                 (300, 1, 130, 2064, 16, 32, False, False),
-                 (640, 16, 5, 6160, 8, 8, True, False),
-                 (640, 16, 38, 2064, 16, 5, False, True),
-                 (300, 1, 15, 2080, 2, 4, False, True),
-                 (1000, 1, 17, 2064, 9, 8, True, True),
-                 (1000, 1, 900, 2064, 16, 8, True, False),
-                 (2200, 1, 2100, 2064, 8, 8, True, False)]:
+    for case in INDEXED_CASES:
         e = check_indexed(dev, rng, *case)
         print(f"   indexed n_rows={case[0]} blk={case[1]} blocks={case[2]} "
               f"m_pad={case[3]} k={case[4]} D={case[5]} missing={case[6]} "
-              f"masked={case[7]}: xv, dv, dq_dp, loss_dq_dp, bce_sum within "
+              f"masked={case[7]} offset={case[8]}: xv, dv, dq_dp, "
+              f"loss_dq_dp, bce_sum within "
               f"the plain tolerance (max|d| {e:.3e}) and bit-equal to the "
               "gathered form")
     done(t)
@@ -3257,7 +3335,7 @@ def phase_ab(dev, parent_dir, parent_build, logs):
     done(t)
 
 
-PHASES = ("env", "build", "kernels", "infer", "readers", "cli_infer",
+PHASES = ("env", "build", "tsan", "kernels", "infer", "readers", "cli_infer",
           "train", "multihead", "stream", "grid", "grid_stream", "cv",
           "cli_train")
 
@@ -3311,6 +3389,8 @@ def main(argv=None):
                                    os.path.abspath(args.ab))
         pool.shutdown(wait=False)
     logs = phase_build() if "build" in run else {}
+    if "tsan" in run:
+        phase_tsan()
     kernels = []
     if "kernels" in run:
         phase_kernels(dev)
