@@ -20,6 +20,9 @@ Per rank (d, s) of a D x S grid (parallel/grid.py):
   then:      the V and P gradients summed over the data group, the
              encoder's over the world, the loss (logged steps) over the
              world; Adam and the P clamp run on each rank's slice.
+
+The step's ``na.forward`` span (utils/trace.py) holds the forward, its
+``na.backward`` the backward and the sums after it.
 """
 from typing import Dict, List, Optional
 
@@ -30,6 +33,7 @@ from ..io.stage import HostStager
 from ..ops.fused_step import fused_infer_q, fused_training_loss
 from ..ops.loss import softmax_cross_entropy_sum
 from ..train.chunked import chunked_forward
+from ..utils.trace import span
 from .distributed import gather_ragged_rows
 from .grid import DATA_AXIS, SNP_AXIS, Grid
 
@@ -86,20 +90,24 @@ def make_sharded_loss_and_grad(grid: Grid, supervised: bool,
 
     def loss_and_grad(model, xb, row_w, col_mask, pops_b, masked: bool,
                       no_missing: bool, logged: bool, merged: bool = True):
-        loss, qs = fused_training_loss(model, xb, col_mask, row_w, masked,
-                                       no_missing, logged, merged,
-                                       snp_group=grid)
-        if supervised:
-            # Q is the same on the snp group's ranks; divide so that the
-            # sum over the grid counts each row's CE once.
-            from ..train.engine import smallest_head
-            loss = loss + supervised_loss_weight * softmax_cross_entropy_sum(
-                qs[smallest_head(qs)], pops_b, row_w) / n_snp
-        loss.backward()
-        reduce_grads(model, grid)
-        loss = loss.detach()
-        if logged:
-            loss = grid.psum_(loss.clone(), (DATA_AXIS, SNP_AXIS), "loss")
+        with span("forward"):
+            loss, qs = fused_training_loss(model, xb, col_mask, row_w,
+                                           masked, no_missing, logged,
+                                           merged, snp_group=grid)
+            if supervised:
+                # Q is the same on the snp group's ranks; divide so that the
+                # sum over the grid counts each row's CE once.
+                from ..train.engine import smallest_head
+                loss = loss + supervised_loss_weight * \
+                    softmax_cross_entropy_sum(qs[smallest_head(qs)], pops_b,
+                                              row_w) / n_snp
+        with span("backward"):
+            loss.backward()
+            reduce_grads(model, grid)
+            loss = loss.detach()
+            if logged:
+                loss = grid.psum_(loss.clone(), (DATA_AXIS, SNP_AXIS),
+                                  "loss")
         return loss
 
     return loss_and_grad

@@ -63,6 +63,17 @@ the JAX engine's engine.py:1276), then a full-data Q pass.
     when the loop ends, by an exception or SIGTERM's exit too. On a card
     that it cannot trace it raises: a trace of the host alone is not
     written in its place. The trace changes no number of the run.
+  * Spans (utils/trace.py :func:`span`), in this trace or any other that
+    a caller records: inside each ``epoch N``, flat and in order,
+    ``na.plan`` (the epoch's plan drawn and moved to the device), then per
+    step ``na.batch`` (its rows and packed batch), ``na.forward`` (the
+    step function up to the backward), ``na.backward``, ``na.adam``
+    (``opt.step`` and ``zero_grad``) and ``na.clamp`` (``restrict_P``, the
+    logged loss's sum), then ``na.epoch_end`` (the loss read-back, the
+    synchronise, the log line, progress, checkpoint and SIGTERM check).
+    ``phase_seconds`` splits layout into ``layout.host`` and
+    ``layout.upload`` (absent when streamed) and init into
+    ``init.params`` and ``init.optimizer``.
   * The encoder init and the per-epoch batch plans come from CPU generators
     seeded from ``seed`` (utils/seeding.py), so a run on the card and a run
     on the CPU draw identical plans and initial weights. ``launch_training``
@@ -131,6 +142,7 @@ from ..utils.hbm import HBM_BUDGET_FRAC, hbm_capacity_bytes
 from ..utils.logger import log, setup_logging
 from ..utils.metrics import fst_table
 from ..utils.seeding import generator
+from ..utils.trace import span
 from .chunked import chunked_forward
 
 INFER_BATCH = 1024
@@ -427,7 +439,9 @@ class NeuralAdmixtureTrainer:
         # layout (pre-shuffle, padding, missing scan, rows to the device),
         # init (parameters, optimizer, a resumed checkpoint), q_pass,
         # results (to numpy, Fst); and of the last checkpoint save and the
-        # load.
+        # load. Layout = layout.host (up to the rows' upload) +
+        # layout.upload (absent when nothing is uploaded); init =
+        # init.params (a resumed checkpoint's load too) + init.optimizer.
         self.phase_seconds: Dict[str, float] = {}
         # On a grid whose profile is on (Grid.start_profile): each epoch's
         # parallel.grid.GridProfile.
@@ -501,9 +515,9 @@ class NeuralAdmixtureTrainer:
                 shard_row_order(N, cfg.seed, ep, rows_per_process(
                     N, d_sz, ep, shard_quantum(d_sz, blk))) if ep
                 else np.random.default_rng(cfg.seed).permutation(N))
-        host, stream, self.stager = None, False, None
+        host, stream, self.stager, upload = None, False, None, None
         if grid is not None:
-            rows_pp, host, resident, no_missing = self._grid_layout(
+            rows_pp, host, upload, no_missing = self._grid_layout(
                 packed, N, m_pad, b_round, host_rows, device)
             stream = host is not None
             n_rows = grid.n_data * rows_pp
@@ -517,7 +531,6 @@ class NeuralAdmixtureTrainer:
             host = np.ascontiguousarray(packed[:N])
             no_missing = not packed_has_missing(host)
             if stream:
-                resident = None
                 self._host_row = np.concatenate([
                     np.arange(N) if self._row_order is None
                     else self._row_order,
@@ -530,13 +543,23 @@ class NeuralAdmixtureTrainer:
                 if n_rows > N:
                     data = np.concatenate(
                         [data, np.zeros((n_rows - N, W), data.dtype)])
-                resident = torch.from_numpy(
-                    np.ascontiguousarray(data)).to(device)
+                upload = np.ascontiguousarray(data)
+                del data
             col_mask = (torch.arange(m_pad, device=device) < M).to(
                 torch.float32)
+        resident, t_upload = None, None
+        if upload is not None:
+            t_upload = self._lap("layout.host", t_phase, device)
+            resident = torch.from_numpy(upload).to(device)
+            del upload
         pops_dev = self._prepare_pops(pops, N, device) if supervised else None
         strat = self._stratified_parts(stream, blk, emul)
-        t_phase = self._lap("layout", t_phase, device)
+        now = self._lap("layout", t_phase, device)
+        if t_upload is None:
+            self.phase_seconds["layout.host"] = now - t_phase
+        else:
+            self.phase_seconds["layout.upload"] = now - t_upload
+        t_phase = now
 
         if init_params is None:
             init_params = qp.init_params(generator(cfg.seed, 0), V.T, P_init,
@@ -544,8 +567,10 @@ class NeuralAdmixtureTrainer:
         if grid is not None:
             init_params = shard_params(init_params, grid.n_snp, grid.s)
         model = qp.params_from_numpy(init_params, self.ks, device)
+        t_opt = self._lap("init.params", t_phase, device)
         opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate,
                                betas=(0.9, 0.95), eps=1e-8)
+        t_opt_end = self._lap("init.optimizer", t_opt, device)
         if plans is None:
             def plans(epoch):
                 if strat:
@@ -558,7 +583,9 @@ class NeuralAdmixtureTrainer:
         start_epoch = 0
         if cfg.resume and cfg.checkpoint_path:
             start_epoch = self._load_checkpoint(model, opt)
-        t_phase = self._lap("init", t_phase, device)
+        now = self._lap("init", t_phase, device)
+        self.phase_seconds["init.params"] += now - t_opt_end
+        t_phase = now
 
         log.info("")
         log.info("    Starting training...")
@@ -575,18 +602,20 @@ class NeuralAdmixtureTrainer:
                                   resident, indexed, device)
 
             def step_fn(full, rows, xb, blk_idx, logged):
-                row_w = (torch.ones(rows.shape[0], device=device)
-                         if blk_idx is not None
-                         else (rows < N).to(torch.float32))
-                loss, qs = fused_training_loss(
-                    model, xb, col_mask, row_w, not (full and full_real),
-                    no_missing, logged, merged, blk_idx, blk)
-                if supervised:
-                    pops_b = pops_dev[torch.clamp(rows, max=N - 1)]
-                    loss = loss + cfg.supervised_loss_weight * \
-                        softmax_cross_entropy_sum(
-                            qs[smallest_head(qs)], pops_b, row_w)
-                loss.backward()
+                with span("forward"):
+                    row_w = (torch.ones(rows.shape[0], device=device)
+                             if blk_idx is not None
+                             else (rows < N).to(torch.float32))
+                    loss, qs = fused_training_loss(
+                        model, xb, col_mask, row_w, not (full and full_real),
+                        no_missing, logged, merged, blk_idx, blk)
+                    if supervised:
+                        pops_b = pops_dev[torch.clamp(rows, max=N - 1)]
+                        loss = loss + cfg.supervised_loss_weight * \
+                            softmax_cross_entropy_sum(
+                                qs[smallest_head(qs)], pops_b, row_w)
+                with span("backward"):
+                    loss.backward()
                 return loss
         else:
             steps = self._grid_batches(plans, start_epoch, N, rows_pp, blk,
@@ -595,6 +624,7 @@ class NeuralAdmixtureTrainer:
                                              cfg.supervised_loss_weight)
 
             def step_fn(full, rows, xb, blk_idx, logged):
+                # lag opens the na.forward and na.backward spans.
                 return lag(model, xb, (rows < N).to(torch.float32), col_mask,
                            pops_dev[torch.clamp(rows, max=N - 1)]
                            if supervised else None,
@@ -638,10 +668,10 @@ class NeuralAdmixtureTrainer:
         pre-shuffle under block sampling), zero-padded to rows_per_process,
         its SNP block of them. By the capacity policy (the same decision on
         every rank: reckoned from rows_per_process) it stays in host memory,
-        streamed through the rank's stager, or goes to the device with one
-        zero row appended (the padding rows of a batch read it). Returns
-        (rows_pp, the host block or None, the device block or None,
-        no_missing over the whole grid)."""
+        streamed through the rank's stager, or is to go to the device with
+        one zero row appended (the padding rows of a batch read it). Returns
+        (rows_pp, the streamed host block or None, the block to upload or
+        None, no_missing over the whole grid)."""
         grid = self.grid
         start, end, rows_pp = self.sample_shard(m_pad, N)
         if host_rows is not None and tuple(host_rows) != (start, end):
@@ -674,7 +704,7 @@ class NeuralAdmixtureTrainer:
                 device, max(b_round // grid.n_data, min(rows_pp, INFER_BATCH)),
                 w_loc, gather_threads=grid.gather_threads)
             return rows_pp, block, None, no_missing
-        return rows_pp, None, torch.from_numpy(block).to(device), no_missing
+        return rows_pp, None, block, no_missing
 
     def _stratified_parts(self, stream: bool, blk: int, emul) -> int:
         """The partitions of the stratified plan (0: the global plan): the
@@ -720,23 +750,30 @@ class NeuralAdmixtureTrainer:
                   if resident is None else None)
         try:
             for epoch in range(start_epoch, cfg.epochs):
-                # The plan goes to the device once per epoch: a pageable
-                # copy per step would wait for the previous step's kernels.
-                idx_full, idx_rem = (
-                    torch.from_numpy(np.array(a, dtype=np.int64)).to(device)
-                    for a in plan(epoch))
-                blk_ids = idx_full.to(torch.int32) if indexed else None
+                with span("plan"):
+                    # The plan goes to the device once per epoch: a pageable
+                    # copy per step would wait for the previous step's
+                    # kernels.
+                    idx_full, idx_rem = (
+                        torch.from_numpy(np.array(a, dtype=np.int64)).to(
+                            device) for a in plan(epoch))
+                    blk_ids = idx_full.to(torch.int32) if indexed else None
                 for i in range(len(idx_full) + 1):
-                    full = i < len(idx_full)
-                    rows = batch_rows(idx_full[i] if full else idx_rem, blk)
-                    if staged is not None:
-                        yield epoch, full, rows, next(staged), None
-                    elif indexed and full:
-                        # Read in place: all rows real (full_real), no copy.
-                        yield epoch, full, rows, resident, blk_ids[i]
-                    else:
-                        yield epoch, full, rows, resident.index_select(
-                            0, torch.clamp(rows, max=n_rows - 1)), None
+                    with span("batch"):
+                        full = i < len(idx_full)
+                        rows = batch_rows(idx_full[i] if full else idx_rem,
+                                          blk)
+                        ids = None
+                        if staged is not None:
+                            xb = next(staged)
+                        elif indexed and full:
+                            # Read in place: all rows real (full_real), no
+                            # copy.
+                            xb, ids = resident, blk_ids[i]
+                        else:
+                            xb = resident.index_select(
+                                0, torch.clamp(rows, max=n_rows - 1))
+                    yield epoch, full, rows, xb, ids
         finally:
             if staged is not None:
                 staged.close()
@@ -814,32 +851,36 @@ class NeuralAdmixtureTrainer:
                   if host is not None else None)
         try:
             for epoch in range(start_epoch, cfg.epochs):
-                epoch_steps = steps(epoch)
-                parts = []
-                for rows, local, exchange in epoch_steps:
-                    parts.append(rows)
-                    if staged is None:
-                        parts += [local] if exchange is None \
-                            else list(exchange[:2])
-                flat = torch.from_numpy(np.concatenate(parts)).to(device)
-                views = iter(flat.split([len(a) for a in parts]))
+                with span("plan"):
+                    epoch_steps = steps(epoch)
+                    parts = []
+                    for rows, local, exchange in epoch_steps:
+                        parts.append(rows)
+                        if staged is None:
+                            parts += [local] if exchange is None \
+                                else list(exchange[:2])
+                    flat = torch.from_numpy(np.concatenate(parts)).to(device)
+                    views = iter(flat.split([len(a) for a in parts]))
                 last = len(epoch_steps) - 1
                 for i, (_, _, exchange) in enumerate(epoch_steps):
-                    rows = next(views)
-                    if staged is not None:
-                        xb = next(staged)
-                    elif exchange is None:
-                        xb = resident.index_select(0, next(views))
-                    else:
-                        send_buf = resident.index_select(0, next(views))
-                        recv_pos = next(views)
-                        out = torch.empty(len(recv_pos), resident.shape[1],
-                                          dtype=torch.uint8, device=device)
-                        self.grid.all_to_all_rows(
-                            out, send_buf, exchange[2], exchange[3],
-                            "exchange")
-                        xb = torch.empty_like(out).index_copy_(0, recv_pos,
-                                                               out)
+                    with span("batch"):
+                        rows = next(views)
+                        if staged is not None:
+                            xb = next(staged)
+                        elif exchange is None:
+                            xb = resident.index_select(0, next(views))
+                        else:
+                            send_buf = resident.index_select(0, next(views))
+                            recv_pos = next(views)
+                            out = torch.empty(len(recv_pos),
+                                              resident.shape[1],
+                                              dtype=torch.uint8,
+                                              device=device)
+                            self.grid.all_to_all_rows(
+                                out, send_buf, exchange[2], exchange[3],
+                                "exchange")
+                            xb = torch.empty_like(out).index_copy_(
+                                0, recv_pos, out)
                     yield epoch, i < last, rows, xb, None
         finally:
             if staged is not None:
@@ -887,65 +928,28 @@ class NeuralAdmixtureTrainer:
             with closing(steps):
                 for epoch, full, rows, xb, blk_idx in steps:
                     logged = epoch % log_every == 0
-                    opt.zero_grad(set_to_none=True)
+                    # step_fn opens na.forward and na.backward.
                     loss = step_fn(full, rows, xb, blk_idx, logged)
-                    opt.step()
-                    model.restrict_P()
-                    if logged:
-                        loss = loss.detach()
-                        loss_sum = loss if loss_sum is None else \
-                            loss_sum + loss
+                    with span("adam"):
+                        opt.step()
+                        opt.zero_grad(set_to_none=True)
+                    with span("clamp"):
+                        model.restrict_P()
+                        if logged:
+                            loss = loss.detach()
+                            loss_sum = loss if loss_sum is None else \
+                                loss_sum + loss
                     if full:
                         continue
                     # The epoch's last step.
-                    if logged:
-                        self.logged_losses[epoch] = float(loss_sum)
+                    with span("epoch_end"):
+                        self._end_epoch(epoch, logged, loss_sum, t_epoch,
+                                        model, opt, ckpt_on, device)
                         loss_sum = None
-                        log.info(f"            Loss in epoch {epoch:3d} is "
-                                 f"{self.logged_losses[epoch]:,.0f}")
-                    _sync(device)
-                    now = time.perf_counter()
-                    self.epoch_seconds.append(now - t_epoch)
                     if trace is not None:
                         trace.end_epoch()
-                    if grid is not None and grid.profile is not None:
-                        self.epoch_profiles.append(grid.lap_profile())
-                    if cfg.progress:
-                        print(f"\r    Epochs: {epoch + 1}/{cfg.epochs}",
-                              end="", file=sys.stderr, flush=True)
-                    saved = ckpt_on and (epoch + 1) % cfg.checkpoint_every \
-                        == 0
-                    if saved:
-                        self._save_checkpoint(epoch + 1, model, opt)
-                    preempted = self._preempted
-                    if ckpt_on and grid is not None:
-                        # Every rank stops at the epoch where any rank was
-                        # signalled (the signal may reach hosts apart).
-                        flag = torch.tensor([int(preempted)],
-                                            device=grid.comm_device)
-                        preempted = bool(grid.psum_(
-                            flag, (DATA_AXIS, SNP_AXIS), "preempt").item())
-                    if preempted and epoch + 1 < cfg.epochs:
-                        if not saved:
-                            self._save_checkpoint(epoch + 1, model, opt)
-                        if grid is not None:
-                            # No rank leaves before the file is written.
-                            grid.psum_(torch.zeros(
-                                1, device=grid.comm_device),
-                                (DATA_AXIS, SNP_AXIS), "saved")
-                        if cfg.progress:
-                            print(file=sys.stderr)
-                        log.info(f"    SIGTERM received: resumable "
-                                 f"checkpoint saved at epoch {epoch + 1} "
-                                 f"({cfg.checkpoint_path}); exiting. Restart "
-                                 "with --resume to continue.")
-                        raise SystemExit(PREEMPTED_EXIT)
-                    if grid is not None and grid.profile is not None:
-                        # An epoch's profile holds its steps: the save's
-                        # gathers and write are measured apart.
-                        grid.start_profile()
-                    if trace is not None and epoch + 1 < cfg.epochs:
-                        trace.begin_epoch(epoch + 1)
+                        if epoch + 1 < cfg.epochs:
+                            trace.begin_epoch(epoch + 1)
                     t_epoch = time.perf_counter()
         except BaseException:
             # An exception, SIGTERM's exit 143 too, leaves no trace running
@@ -968,6 +972,52 @@ class NeuralAdmixtureTrainer:
             log.info(f"    Training throughput: "
                      f"{N * epochs_run / self.train_seconds:,.0f} samples/s "
                      f"({self.train_seconds:.2f}s for {epochs_run} epochs).")
+
+    def _end_epoch(self, epoch: int, logged: bool, loss_sum, t_epoch: float,
+                   model, opt, ckpt_on: bool, device) -> None:
+        """After an epoch's last step: its logged loss read back and logged,
+        the synchronise that closes ``epoch_seconds``, the grid's profile,
+        progress, the periodic checkpoint, and on SIGTERM the save and exit
+        143."""
+        cfg, grid = self.cfg, self.grid
+        if logged:
+            self.logged_losses[epoch] = float(loss_sum)
+            log.info(f"            Loss in epoch {epoch:3d} is "
+                     f"{self.logged_losses[epoch]:,.0f}")
+        _sync(device)
+        self.epoch_seconds.append(time.perf_counter() - t_epoch)
+        if grid is not None and grid.profile is not None:
+            self.epoch_profiles.append(grid.lap_profile())
+        if cfg.progress:
+            print(f"\r    Epochs: {epoch + 1}/{cfg.epochs}", end="",
+                  file=sys.stderr, flush=True)
+        saved = ckpt_on and (epoch + 1) % cfg.checkpoint_every == 0
+        if saved:
+            self._save_checkpoint(epoch + 1, model, opt)
+        preempted = self._preempted
+        if ckpt_on and grid is not None:
+            # Every rank stops at the epoch where any rank was signalled
+            # (the signal may reach hosts apart).
+            flag = torch.tensor([int(preempted)], device=grid.comm_device)
+            preempted = bool(grid.psum_(flag, (DATA_AXIS, SNP_AXIS),
+                                        "preempt").item())
+        if preempted and epoch + 1 < cfg.epochs:
+            if not saved:
+                self._save_checkpoint(epoch + 1, model, opt)
+            if grid is not None:
+                # No rank leaves before the file is written.
+                grid.psum_(torch.zeros(1, device=grid.comm_device),
+                           (DATA_AXIS, SNP_AXIS), "saved")
+            if cfg.progress:
+                print(file=sys.stderr)
+            log.info(f"    SIGTERM received: resumable checkpoint saved at "
+                     f"epoch {epoch + 1} ({cfg.checkpoint_path}); exiting. "
+                     "Restart with --resume to continue.")
+            raise SystemExit(PREEMPTED_EXIT)
+        if grid is not None and grid.profile is not None:
+            # An epoch's profile holds its steps: the save's gathers and
+            # write are measured apart.
+            grid.start_profile()
 
     def _capacity_policy(self, data_bytes: int, batch_bytes: int,
                          plane_bytes: int, device) -> bool:

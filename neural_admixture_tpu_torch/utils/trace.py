@@ -1,21 +1,41 @@
-"""Reading the Chrome traces that ``train --profile_dir`` writes
-(train/engine.py EpochTrace): the ``epoch N`` spans, the launches of the
-port's kernels, and the device's busy share over a window.
+"""The epoch loop's spans, and reading the Chrome traces that ``train
+--profile_dir`` writes (train/engine.py EpochTrace): the ``epoch N`` spans,
+the launches of the port's kernels, and the device's busy share over a
+window.
+
+:func:`span` names what the program is doing (``na.plan``, ``na.batch``,
+``na.forward``, ``na.backward``, ``na.adam``, ``na.clamp``,
+``na.epoch_end``) in whatever ``torch.profiler`` trace is recording, on the
+clock of the card's kernels; with no profiler recording it costs one check.
 
 Times are the trace's microseconds. A span's window is its host interval;
 the device's work in it is the union of its kernels, copies and memsets
 (CUPTI's ``kernel``, ``gpu_memcpy`` and ``gpu_memset`` events), clipped to
 the window.
 """
+import contextlib
 import json
 import re
-from typing import Dict, List, Tuple
+from typing import ContextManager, Dict, List, Tuple
+
+import torch
 
 # The main kernel of each wrapper's launch (csrc/*.cu); dq_dp's
 # WITH_LOSS instance is loss_dq_dp. An indexed form counts as its kernel.
 KERNELS = (("xv_mma_kernel", "xv"), ("dq_dp_kernel", "dq_dp"),
            ("dv_mma_kernel", "dv"), ("bce_sum_kernel", "bce_sum"))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SPAN_PREFIX = "na."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str) -> ContextManager:
+    """A ``record_function`` span ``na.<name>`` while a profiler records;
+    otherwise one shared no-op context. A span left open across the
+    profiler's stop closes without error."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _OFF
 
 
 def load_events(path: str) -> List[Dict]:
