@@ -24,7 +24,8 @@ non-zero exit and no result line:
      address; bce_sum's term alone against float64 on 2^24 (r, code)
      pairs, and bce_sum also on adversarial
      planes: r in [1e-9, 1e-3] at x = 0, r exactly 0 and 1 at every code,
-     r within 2^-20 of 1 at code 2; xv also on a V with a 1000-fold
+     r within 2^-20 of 1 at code 2, and loss_dq_dp on the same planes;
+     xv also on a V with a 1000-fold
      spike in every 512-SNP chunk, dv on a dXp with a 1000-fold spike in
      every 256-row chunk on a row of mostly 0 codes, and on a batch that
      takes two launches by rows); the indexed form of each (K7:
@@ -125,10 +126,12 @@ non-zero exit and no result line:
      DIR/build while the phases run, timed against the checkout's in the
      order parent, change, change, parent: K2 (B = 800 and 1024), K5
      gathered and indexed at B = 800 and at the remainder B = 96, K3, K4
-     and K6 per head of K = 2..10, a warm unlogged training step at
-     K = 8 and K = 2..10, a warm logged step of the split program at
-     K = 2..10, and infer_q (ab.json, beside the ptxas logs); each
-     instance's ptxas registers of DIR's build against the checkout's;
+     and K6 per head of K = 2..10 (K3 and K4 also at B = 4096), a warm
+     unlogged and a warm logged training step at K = 8 and K = 2..10, a
+     warm logged step of the split program at K = 2..10, and infer_q
+     (ab.json, beside the ptxas logs); each instance's ptxas line of DIR's
+     build against the checkout's, and the SASS instructions an element of
+     the main loop of the cells' K3 and K4 instances in both;
   8. the run's seconds, the card's name and power limit, one JSON line with
      every kernel's numbers (those of the phases run; launches: phases 6,
      6b, 6c's streamed runs, 6d's and 6e's ranks and 6f, summed, with 6d's
@@ -537,20 +540,23 @@ def phase_env():
 
 
 def ptxas_functions(log):
-    """[(entry function, registers, spill stores in bytes)] from nvcc's
-    -Xptxas -v output, names as mangled."""
+    """[(entry function, registers, spill stores in bytes, ptxas line)] from
+    nvcc's -Xptxas -v output, names as mangled; the line is its stack, spill
+    and register lines joined."""
     import re
-    out, name, spill = [], None, 0
+    out, name, spill, text = [], None, 0, []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name, spill = m.group(1), 0
+            name, spill, text = m.group(1), 0, []
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
+            text.append(line.strip())
+        m = re.search(r"Used (\d+) registers.*", line)
         if m and name:
-            out.append((name, int(m.group(1)), spill))
+            text.append(m.group(0).strip())
+            out.append((name, int(m.group(1)), spill, "; ".join(text)))
             name = None
     return out
 
@@ -566,9 +572,9 @@ def ptxas_summary(log):
     """(functions, min and max registers, largest spill stores in bytes)
     from nvcc's -Xptxas -v output."""
     fns = ptxas_functions(log)
-    regs = [r for _, r, _ in fns]
+    regs = [r for _, r, _, _ in fns]
     return len(fns), min(regs, default=0), max(regs, default=0), \
-        max((sp for _, _, sp in fns), default=0)
+        max((sp for _, _, sp, _ in fns), default=0)
 
 
 def phase_build():
@@ -582,7 +588,7 @@ def phase_build():
         print(f"   {name}: {info['seconds']:.1f} s -> {info['path'].name}; "
               f"ptxas: {n} functions, {r_min}-{r_max} registers, spill "
               f"stores {spill} bytes at most")
-        for fn, regs, sp in ptxas_functions(info["log"]):  # each instance
+        for fn, regs, sp, _ in ptxas_functions(info["log"]):  # each one
             print(f"     ptxas {fn}: {regs} registers, spill stores "
                   f"{sp} bytes")
         logs[name] = info["log"]
@@ -653,7 +659,8 @@ def check_division(dev, n=1 << 24):
 
 
 def check_bce_term(dev, n=1 << 24):
-    """bce_sum's one-log term (csrc/bce.cuh bce_elem_code) on the card
+    """The one-log term of bce_sum and loss_dq_dp (csrc/bce.cuh
+    bce_elem_code), through bce_sum's term check, on the card
     against the clamped BCE in float64 on n (r, code) pairs: r uniform on
     [0, 1], log-uniform from 1e-45 to 1, and within 2^-4 of 1 on the 2^-24
     grid, besides 0, 1 and denormals below e^-100; codes 0-3. Per element
@@ -798,11 +805,12 @@ DV_CASES = [(1, 2064, 4, True, False, False, 0),
             (DV_SPLIT, 2112, 9, False, True, False, 0),
             (DV_SPLIT, 2064, 16, False, True, False, 0),
             (DV_SPLIT, 2112, 10, False, True, False, 4)]
-# bce_sum (B, m_pad, k): k in {1, 7, 16} (both instances, KS = 1 and 2),
-# each with and without code 3 in the data (no_missing set when there is
-# none), masked and unmasked, on the random planes of q and P above and on
-# the adversarial planes of bce_plane; (900, 16) and (1700, 7) stage their
-# rows in two passes.
+# bce_sum and loss_dq_dp (B, m_pad, k): k in {1, 7, 16} (both bce_sum
+# instances, KS = 1 and 2; loss_dq_dp at KT 4, 8 and 16), each with and
+# without code 3 in the data (no_missing set when there is none), masked
+# and unmasked, on the random planes of q and P above and on the
+# adversarial planes of bce_plane, where the one-log term of both is
+# hardest; (900, 16) and (1700, 7) stage their rows in two passes.
 BCE_SUM_CASES = [(9, 4112, 1), (96, 8208, 7), (600, 2064, 16),
                  (900, 2064, 16), (1700, 2064, 7)]
 # indexed forms (n_rows resident, blk, blocks, m_pad, k, D, missing,
@@ -833,7 +841,8 @@ def phase_kernels(dev):
     print(f"   dq_dp's branch-free division: bit-equal to '/' on 2^24 pairs "
           f"of its domain; {share:.2e} of them taken by '/' instead")
     rel = check_bce_term(dev)
-    print(f"   bce_sum's one-log term: on 2^24 (r, code) pairs within "
+    print(f"   the one-log term of bce_sum and loss_dq_dp: on 2^24 (r, code) "
+          f"pairs within "
           f"{rel:.2e} of the float64 BCE (rule 1e-6), no NaN, bit-equal to "
           "bce_elem where a clamp decides it")
     rng = np.random.default_rng(SEED)
@@ -900,9 +909,12 @@ def phase_kernels(dev):
                 for masked in (True, False):
                     e = check_bce_sum(packed, q, P, cm, rw, masked,
                                       not missing)
-                    print(f"   bce_sum {plane} B={B} m_pad={m} k={k} "
-                          f"missing={missing} no_missing={not missing} "
-                          f"masked={masked}: |d| {e:.3e}")
+                    e4 = check_dq_dp(packed, q, P, cm, rw, 1.0, masked,
+                                     not missing, True)
+                    print(f"   bce_sum and loss_dq_dp {plane} B={B} "
+                          f"m_pad={m} k={k} missing={missing} "
+                          f"no_missing={not missing} masked={masked}: "
+                          f"|d| {e:.3e}, max|d| {e4:.3e}")
     for case in INDEXED_CASES:
         e = check_indexed(dev, rng, *case)
         print(f"   indexed n_rows={case[0]} blk={case[1]} blocks={case[2]} "
@@ -3204,6 +3216,43 @@ def step_fn(model, xb, cm, rw, no_missing, logged=False, merged=True):
     return step
 
 
+def template_args(fn):
+    """A mangled kernel instance named by its template arguments, e.g.
+    ``dq_dp_kernel<8,0,0,1,0>``."""
+    import re
+    m = re.search(r"\d([a-z][a-z_0-9]*kernel)I((?:L[ib]\d+E)+)E", fn)
+    if not m:
+        return fn
+    return (f"{m.group(1)}<"
+            + ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) + ">")
+
+
+def dq_dp_sass(lib_path):
+    """The main loop of the cells' K3 and K4 instances (gathered, unmasked,
+    NO_MISSING false) at KT 4, 8 and 16 in the SASS of a dq_dp library,
+    through tools/cuda_sass_loops.py: {"KT kt K3|K4": {"loop": its
+    instructions, "hmma": its tensor-core products, "per_element": the
+    instructions over the elements one iteration gives a lane}}. An
+    iteration takes HMMA / (6 KS NS) 16-row groups (three products each for
+    raw and dq, a step and head slice), and a group is 4 NS elements a
+    lane."""
+    from tools import cuda_sass_loops as sl
+    sass = subprocess.run([sl.cuobjdump(), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    fns = sl.functions(sass)
+    out = {}
+    for kt in (4, 8, 16):
+        ks, ns = (kt + 7) // 8, 1 if kt == 16 else 2
+        for wl in (False, True):
+            tag = f"dq_dp_kernelILi{kt}ELb0ELb0ELb{int(wl)}ELb0E"
+            (insns,) = [v for fn, v in fns.items() if tag in fn]
+            n, hmma = sl.busiest_loop(insns, "HMMA")
+            elems = hmma / (6 * ks * ns) * 4 * ns
+            out[f"KT {kt} {'K4' if wl else 'K3'}"] = {
+                "loop": n, "hmma": hmma, "per_element": n / elems}
+    return out
+
+
 def phase_ab(dev, parent_dir, parent_build, logs):
     """This checkout's kernels against another version of them (``--ab DIR``:
     DIR a copy of another commit's ``csrc/``, built into DIR/build by
@@ -3212,34 +3261,49 @@ def phase_ab(dev, parent_dir, parent_build, logs):
     parent. Each turn times, at B = 800 on full-width rows, K2 and K5 at
     D = 8 (K5 gathered and indexed, at B = 800 and at the remainder
     B = 96), K3, K4 and K6 per head of K = 2..10, a warm unlogged training
-    step at K = 8 and at K = 2..10, and a warm logged step of the split
-    program (K6 + K3 per head) at K = 2..10; K2 also at B = 1024, the infer
-    batch, and infer_q over N = 4096 full-width rows (host clock, the mean
-    of 3 runs after one). The wrappers reach the parent's libraries through
-    _build.load; a kernel that DIR lacks runs the checkout's in both. First
-    it says whether each kernel instance of DIR's build has the registers
-    and spills of the checkout's (``logs``: phase 2's ptxas logs, or empty).
-    Writes chiprun_out/ab.json."""
+    step at K = 8 and at K = 2..10, a warm logged step (K4 per head) at
+    K = 8 and K = 2..10 and one of the split program (K6 + K3 per head) at
+    K = 2..10; K3 and K4 per head also at B = 4096 (the B = 800 rows over
+    again); K2 also at B = 1024, the infer batch, and infer_q over N = 4096
+    full-width rows (host clock, the mean of 3 runs after one). The
+    wrappers reach the parent's libraries through _build.load; a kernel
+    that DIR lacks runs the checkout's in both. First it holds each kernel
+    instance's ptxas line (stack, spills, registers) of DIR's build against
+    the checkout's (``logs``: phase 2's ptxas logs, or empty), printing
+    those that differ, and counts the instructions of the main loop of the
+    cells' K3 and K4 instances in both builds' SASS (dq_dp_sass). Writes
+    chiprun_out/ab.json: the lines, the counts and the times."""
     t = phase(f"A/B: {parent_dir} (parent) vs this checkout's kernels")
     built = parent_build.result()
-    for name, info in _build.build().items():  # built here unless phase 2 ran
+    mine_built = _build.build()  # built here unless phase 2 ran
+    for name, info in mine_built.items():
         logs.setdefault(name, info["log"])
+    results = {"ptxas": {}, "sass": {}}
     for name, info in built.items():
         n, r_min, r_max, spill = ptxas_summary(info["log"])
         print(f"   parent {name}: ptxas: {n} functions, {r_min}-{r_max} "
               f"registers, spill stores {spill} bytes at most")
-        mine = {unhashed(fn): (r, sp) for fn, r, sp in
-                ptxas_functions(logs.get(name, ""))}
-        theirs = ptxas_functions(info["log"])
-        same = bool(mine) and mine == {unhashed(fn): (r, sp)
-                                       for fn, r, sp in theirs}
-        print(f"     every instance's registers and spills as this "
-              f"checkout's: {same}")
-        if not same:
-            for fn, regs, sp in theirs:
-                print(f"     parent ptxas {fn}: {regs} registers, spill "
-                      f"stores {sp} bytes; checkout "
-                      f"{mine.get(unhashed(fn), 'absent')}")
+        lines = {}
+        for side, log in (("parent", info["log"]),
+                          ("change", logs.get(name, ""))):
+            for fn, _, _, text in ptxas_functions(log):
+                lines.setdefault(unhashed(fn), {})[side] = text
+        results["ptxas"][name] = lines
+        differ = [fn for fn, v in lines.items()
+                  if v.get("parent") != v.get("change")]
+        print(f"     {len(lines) - len(differ)} of {len(lines)} instances "
+              "with the parent's ptxas line; the others:")
+        for fn in differ:
+            print(f"     {template_args(fn)}: parent {lines[fn].get('parent')}"
+                  f" | change {lines[fn].get('change')}")
+    for side, info in (("parent", built["dq_dp"]),
+                       ("change", mine_built["dq_dp"])):
+        results["sass"][side] = dq_dp_sass(info["path"])
+        print(f"   {side} dq_dp SASS, main loop (instructions, HMMA, an "
+              "element): " + ", ".join(
+                  f"{kid} {v['loop']} / {v['hmma']} / "
+                  f"{v['per_element']:.1f}"
+                  for kid, v in results["sass"][side].items()))
     parent_libs = {name: ctypes.CDLL(str(info["path"]))
                    for name, info in built.items()}
     change_load = _build.load
@@ -3290,7 +3354,11 @@ def phase_ab(dev, parent_dir, parent_build, logs):
         qs = m9.encode_from_xp(xv(xb, m9.V, no_missing))
         heads = {hk: (qs[hk].contiguous(), m9.decoders[hk].detach())
                  for hk in qs}
-    results = {}
+        # K3 and K4 also at the k8 cell's batch: xb's rows over again
+        xb4k = xb.repeat(-(-4096 // B), 1)[:4096].contiguous()
+        qs4k = m9.encode_from_xp(xv(xb4k, m9.V, no_missing))
+        heads4k = {hk: qs4k[hk].contiguous() for hk in qs4k}
+    rw4k = torch.ones(4096, device=dev)
     try:
         for turn, which in enumerate(("parent", "change", "change",
                                       "parent")):
@@ -3314,9 +3382,19 @@ def phase_ab(dev, parent_dir, parent_build, logs):
                         xb, q, P, cm, rw, 1.0, False, no_missing, True), 10)
                     row[f"K6 {hk}"] = cuda_ms(lambda: bce_sum(
                         xb, q, P, cm, rw, False, no_missing), 10)
+                for hk, (_, P) in heads.items():
+                    q = heads4k[hk]
+                    row[f"K3 {hk} B=4096"] = cuda_ms(lambda: dq_dp(
+                        xb4k, q, P, cm, rw4k, 1.0, False, no_missing), 5)
+                    row[f"K4 {hk} B=4096"] = cuda_ms(lambda: dq_dp(
+                        xb4k, q, P, cm, rw4k, 1.0, False, no_missing, True),
+                        5)
             for name, model in models.items():
                 row[f"step {name}"] = cuda_ms(
                     step_fn(model, xb, cm, rw, no_missing), 10)
+            for name, model in models.items():
+                row[f"logged step {name}"] = cuda_ms(step_fn(
+                    model, xb, cm, rw, no_missing, logged=True), 10)
             row["logged split step K=2..10"] = cuda_ms(step_fn(
                 models["K=2..10"], xb, cm, rw, no_missing, logged=True,
                 merged=False), 10)
@@ -3324,6 +3402,9 @@ def phase_ab(dev, parent_dir, parent_build, logs):
             for kid in ("K3", "K4", "K6"):
                 row[f"{kid} sum of heads"] = sum(
                     row[f"{kid} {hk}"] for hk in heads)
+            for kid in ("K3", "K4"):
+                row[f"{kid} sum of heads B=4096"] = sum(
+                    row[f"{kid} {hk} B=4096"] for hk in heads)
             results[f"{turn + 1}:{which}"] = row
             print(f"   {turn + 1}. {which}: " + ", ".join(
                 f"{n} {v:.4f}" for n, v in row.items()), flush=True)

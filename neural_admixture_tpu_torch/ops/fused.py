@@ -2,7 +2,8 @@
 
 On the card the decode is the device function ``unpack_word`` of
 ``csrc/unpack.cuh`` (the counterpart of the JAX package's ops/fused.py
-``_unpack_x``), the BCE term is ``bce_elem`` of ``csrc/bce.cuh`` and the
+``_unpack_x``), the BCE term is ``bce_term`` of ``csrc/bce.cuh`` (one
+logarithm where ``bce_elem`` takes two, within 1e-6 relative) and the
 draw is inlined in ``csrc/dq_dp.cu``; this module is their plain version, used by the kernels' plain versions on the
 CPU and as their oracle on the card. Counterparts: ops/fused.py
 ``_bce_terms`` and ``_draw_tile`` of the JAX package, with fp32 operands and

@@ -298,6 +298,82 @@ def test_bce_sum_kernel_matches_plain_on_card(cuda_device, B, M, K, masked,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("plane", PLANES)
+@pytest.mark.parametrize("B,M,K", [(9, 4112, 3), (96, 8208, 8),
+                                   (600, 2064, 10)])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("missing", [True, False])
+def test_loss_dq_dp_loss_equals_bce_sum_on_card(cuda_device, B, M, K, masked,
+                                               missing, plane):
+    """K4 (dq_dp with the loss) and K6 add the same one-log term of every
+    element (csrc/bce.cuh), in other orders: the merged and the split
+    programs' losses agree within the rule of fp32 sums, at KT 4, 8, 16."""
+    rng = np.random.default_rng(B + K + 1)
+    G, q, P = bce_plane(rng, plane, B, M, K, missing)
+    cm = (rng.uniform(size=M) > 0.1).astype(np.float32)
+    rw = (rng.uniform(size=B) > 0.2).astype(np.float32)
+    args = [t.to(cuda_device) for t in _port(pack_2bit_rows(G), q, P, cm, rw)]
+    k6 = bce_sum(*args, masked, not missing)
+    _, _, k4 = dq_dp(*args, 1.0, masked, not missing, True)
+    torch.cuda.synchronize()
+    assert abs(k4.item() - k6.item()) <= 1e-5 * abs(k6.item()) + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [3, 8, 10])
+def test_loss_dq_dp_term_is_bce_elem_code_bit_for_bit_on_card(cuda_device,
+                                                              K):
+    """K4's term of each element is K6's bce_elem_code, bit for bit. Row b
+    holds code b (0-3) and a one-hot q at head b % K; P holds values of at
+    most 11 significant bits in [0, 1], which 3xTF32 keeps whole, so raw is
+    that value exactly. A mask that keeps one element at a time makes K4's
+    loss that element's term added to +0 (the others add +0 too; a term of
+    -0, code 2 at r = 1, reads +0), which is held against bce_sum's term
+    check (na_bce_sum_term_check) on the same (r, code)."""
+    import ctypes
+
+    from neural_admixture_tpu_torch import _build
+    rng = np.random.default_rng(K)
+    M = 64
+    r = np.concatenate([
+        [0.0, 1.0, 0.5, 0.25, 0.75, 1 - 2.0 ** -11, 1 - 2.0 ** -10,
+         683 * 2.0 ** -11, 2.0 ** -126, 3 * 2.0 ** -100, 2.0 ** -24],
+        rng.integers(1024, 2048, size=M - 11)
+        * 2.0 ** -(11 + rng.integers(0, 110, size=M - 11))])
+    r = r.astype(np.float32)
+    P = np.tile(r, (K, 1))
+    q = np.eye(K, dtype=np.float32)[np.arange(4) % K]
+    G = np.tile(np.arange(4, dtype=np.uint8)[:, None], (1, M))
+    args = [t.to(cuda_device) for t in _port(
+        pack_2bit_rows(G), q, P, np.zeros(M, np.float32),
+        np.zeros(4, np.float32))]
+    got = torch.empty(4, M, device=cuda_device)
+    for b in range(4):
+        args[4].zero_()
+        args[4][b] = 1.0
+        for m in range(M):
+            args[3].zero_()
+            args[3][m] = 1.0
+            got[b, m] = dq_dp(*args, 1.0, True, False, True)[2]
+    rec = torch.from_numpy(np.tile(r, 4)).to(cuda_device)
+    code = torch.arange(4, device=cuda_device,
+                        dtype=torch.int32).repeat_interleave(M)
+    want = torch.empty_like(rec)
+    lib = _build.load("bce_sum")
+    vp = ctypes.c_void_p
+    lib.na_bce_sum_term_check.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
+    lib.na_bce_sum_term_check.restype = ctypes.c_int
+    assert lib.na_bce_sum_term_check(
+        rec.data_ptr(), code.data_ptr(), want.data_ptr(), rec.numel(),
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    want = want + 0.0  # -0 + 0 = +0
+    bad = got.flatten().view(torch.int32) != want.view(torch.int32)
+    assert not bad.any(), (rec[bad].tolist(), code[bad].tolist(),
+                           got.flatten()[bad].tolist(), want[bad].tolist())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name,masked", [("xv", False), ("dv", False)] + [
     (name, masked) for name in KERNELS[1:] if name != "dv"
     for masked in (True, False)])

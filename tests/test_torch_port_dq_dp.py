@@ -174,20 +174,29 @@ def _abs_bound(*sums):
                                    (17, 4144, 2), (600, 2080, 9),
                                    (900, 2064, 16)])
 @pytest.mark.parametrize("masked", [True, False])
-@pytest.mark.parametrize("with_loss", [True, False])
+@pytest.mark.parametrize("with_loss,plane", [
+    (False, "random"), (True, "random"), (True, "small_r"), (True, "edges"),
+    (True, "near_one")])
 @pytest.mark.parametrize("missing", [True, False])
 def test_dq_dp_kernel_matches_plain_on_card(cuda_device, B, M, K, masked,
-                                            with_loss, missing):
+                                            with_loss, plane, missing):
     """B ragged against the kernel's 16-row groups, M against its 128-SNP
     tiles, every template (k <= 4, 8, 16) and, at B = 900 and k = 16, two
-    launches."""
+    launches. With the loss also on the adversarial planes of
+    tests/test_torch_port_bce_sum.py ``bce_plane``, where the one-log term
+    is hardest (raw is exact there, or far from the clamp edges)."""
     rng = np.random.default_rng(B)
-    packed = pack_2bit_rows(rng.integers(0, 4 if missing else 3,
-                                         size=(B, M)).astype(np.uint8))
-    q = rng.dirichlet(np.ones(K), size=B).astype(np.float32)
-    # raw inside (0.1, 0.9): no element near the clamp edges, where the
-    # gradient amplifies the last bit of raw
-    P = rng.uniform(0.1, 0.9, size=(K, M)).astype(np.float32)
+    if plane == "random":
+        packed = pack_2bit_rows(rng.integers(0, 4 if missing else 3,
+                                             size=(B, M)).astype(np.uint8))
+        q = rng.dirichlet(np.ones(K), size=B).astype(np.float32)
+        # raw inside (0.1, 0.9): no element near the clamp edges, where the
+        # gradient amplifies the last bit of raw
+        P = rng.uniform(0.1, 0.9, size=(K, M)).astype(np.float32)
+    else:
+        from test_torch_port_bce_sum import bce_plane  # tests/ on sys.path
+        G, q, P = bce_plane(rng, plane, B, M, K, missing)
+        packed = pack_2bit_rows(G)
     cm = (rng.uniform(size=M) > 0.1).astype(np.float32)
     rw = (rng.uniform(size=B) > 0.2).astype(np.float32)
     args = [t.to(cuda_device) for t in _port(packed, q, P, cm, rw)]

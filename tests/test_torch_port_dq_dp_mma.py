@@ -13,7 +13,11 @@ words at the kernel's shifts, and keeps dP in per-lane accumulators on the
 "CUDA cores". It asserts that:
 
 * dq, dP and the loss agree with ``dq_dp_plain`` within PERF.md section 2's
-  rule, |d| <= 1e-5 * (the same sum over absolute values) + 1e-6;
+  rule, |d| <= 1e-5 * (the same sum over absolute values) + 1e-6, on random
+  planes and on the adversarial planes of tests/test_torch_port_bce_sum.py
+  ``bce_plane``, the loss taken with K6's one-log term (csrc/bce.cuh
+  ``bce_elem_code``, modelled by tests/bce_term_model.py), which also holds
+  each term within 1e-6 of the float64 BCE of the model's own raw;
 * on the 2^-10 grid of chip_smoke.py's phase 3 the split is exact
   (small = 0) and raw equals q @ P computed exactly, the clamp's boundary
   columns (raw = 0 and raw = 1) included;
@@ -35,8 +39,10 @@ import torch
 
 from neural_admixture_tpu_torch.io.packed import pack_2bit_rows
 from neural_admixture_tpu_torch.ops.dq_dp import dq_dp_plain
-from neural_admixture_tpu_torch.ops.fused import (GRAD_EPS, bce_elem,
-                                                  draw_tile, unpack_dosage)
+from neural_admixture_tpu_torch.ops.fused import (GRAD_EPS, draw_tile,
+                                                  unpack_dosage)
+from tests.bce_term_model import bce64, term_model
+from tests.test_torch_port_bce_sum import bce_plane
 
 LANE = torch.arange(32)
 G, T = LANE // 4, LANE % 4
@@ -179,7 +185,7 @@ def model_dq_dp(packed, q, P, cm, rw, g, masked, with_loss, n_blocks):
                         rec = c4.clamp(0.0, 1.0)
                         d = (rec - x) / (rec * (1.0 - rec)).clamp_min(GRAD_EPS)
                         d = torch.where(c4 == rec, d, torch.zeros_like(d))
-                        e = bce_elem(rec, x)
+                        e = term_model(rec, code)  # bce_elem_code
                         if masked:
                             d, e = d * mrw, e * mrw
                         loss += e.double().sum()
@@ -239,6 +245,20 @@ def _inputs(seed, B, m_pad, k, grid, missing=True, M=None):
     return [torch.from_numpy(np.ascontiguousarray(a).astype(np.float32))
             if a.dtype != np.uint8 else torch.from_numpy(a)
             for a in (packed, q, P, cm, rw)]
+
+
+def _plane_inputs(seed, kind, B, M, k, missing, pad=16):
+    """packed, q, P, cm, rw of a ``bce_plane`` kind, m_pad = M rounded up to
+    16 plus ``pad`` padded columns (codes 0, P 0)."""
+    rng = np.random.default_rng(seed)
+    G2, q, P = bce_plane(rng, kind, B, M, k, missing)
+    m_pad = -(-M // 16) * 16 + pad
+    P = np.pad(P, ((0, 0), (0, m_pad - M)))
+    cm = (np.arange(m_pad) < M) * (rng.uniform(size=m_pad) > 0.1)
+    rw = rng.uniform(size=B) > 0.2
+    return [torch.from_numpy(pack_2bit_rows(G2, m_pad=m_pad))] + [
+        torch.from_numpy(np.ascontiguousarray(a).astype(np.float32))
+        for a in (q, P, cm, rw)]
 
 
 def _check_against_plain(got, packed, q, P, cm, rw, g, masked):
@@ -320,3 +340,26 @@ def test_model_is_exact_on_the_grid(k):
     assert torch.equal(raw.double(), exact)
     assert not raw[:, 0].any() and bool((raw[:, 1] == 1.0).all())
     _check_against_plain((dq, dP, loss), packed, q, P, cm, rw, 1.0, True)
+
+
+@pytest.mark.parametrize("missing", [True, False])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("k", [3, 8, 10])
+@pytest.mark.parametrize("plane", ["small_r", "edges", "near_one"])
+def test_model_loss_on_the_adversarial_planes(plane, k, masked, missing):
+    """K4's loss with K6's one-log term, on the planes where the term is
+    hardest (r in [1e-9, 1e-3] at x = 0, r exactly 0 and 1 and clamped raw,
+    r within 2^-20 of 1), at KT 4, 8 and 16: dq, dP and the loss within the
+    rule of dq_dp_plain, and the loss within 1e-6 of the float64 clamped BCE
+    of the model's own raw (over the sum of its absolute values)."""
+    B, M = 21, 150
+    packed, q, P, cm, rw = _plane_inputs(k + 10 * missing, plane, B, M, k,
+                                         missing)
+    dq, dP, loss, raw = model_dq_dp(packed, q, P, cm, rw, 1.0, masked, True,
+                                    2)
+    _check_against_plain((dq, dP, loss), packed, q, P, cm, rw, 1.0, masked)
+    e64 = bce64(raw.clamp(0.0, 1.0), (2 * unpack_dosage(packed)).long())
+    if masked:
+        e64 = e64 * (cm[None] * rw[:, None]).double()
+    assert abs(loss.item() - e64.sum().item()) <= \
+        1e-6 * e64.abs().sum().item()

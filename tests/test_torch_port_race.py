@@ -220,11 +220,14 @@ def launches():
         out["dv"].append(dict(inst=(nm, False), B=B, m=m, D=D,
                               vec16=_vec16(m, off),
                               W4_ragged=(m // 16) % 4 != 0))
-    for B, m, k in cs.BCE_SUM_CASES:
+    for B, m, k in cs.BCE_SUM_CASES:  # bce_sum and loss_dq_dp
         for missing in (True, False):
             for masked in (True, False):
                 out["bce_sum"].append(dict(inst=(_ks(k), masked, not missing),
                                            indexed=False, B=B, m=m, k=k))
+                out["dq_dp"].append(dict(
+                    inst=(_kt(k), masked, not missing, True, False), B=B,
+                    m=m, k=k))
     for n_rows, blk, nbk, m, k, D, missing, masked, off in cs.INDEXED_CASES:
         assert nbk * blk <= n_rows
         B, nm = nbk * blk, not missing

@@ -87,6 +87,17 @@ def innermost_loops(insns):
                        for c, d in loops)]
 
 
+def busiest_loop(insns, op):
+    """(instructions, ``op`` instructions) of the innermost loop that holds
+    the most of ``op`` (e.g. HMMA: a kernel's main loop of products)."""
+    best = (0, 0)
+    for a, b in innermost_loops(insns):
+        body = [t for addr, t in insns if a <= addr <= b]
+        best = max(best, (sum(t.split()[0].split(".")[0] == op
+                              for t in body), len(body)))
+    return best[1], best[0]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("names", nargs="*")
